@@ -19,9 +19,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    output there is held to its plain version;
 5. one ``{"kernels": [...]}`` JSON line: launches on the full-width run,
    worst error against the plain version, and CUDA-event times of the
-   kernel, its plain version and the one-call PyTorch yardstick at the
-   full-width run's largest inputs, beside the least time the card could
-   take;
+   kernel, its plain version and the one-call PyTorch yardstick, each
+   summed over every call the full-width run made, beside the least time
+   the card could take for the same calls;
 6. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
@@ -111,7 +111,9 @@ def k1_err(ks, values, ids, n_seg) -> float:
     return float(torch.maximum(err.max(), (maxs - want_m).abs().max())), rel
 
 
-def k2_check(ks, posted, arrival, bounds) -> None:
+def k2_check(ks, posted, arrival, bounds) -> int:
+    """K2 against its plain version on one input: bit-equal or raise;
+    returns the worst abs difference in steps (0 for an empty walk)."""
     got = ks.queue_walk(posted, arrival, bounds)
     want = ks.queue_walk_plain(posted, arrival, bounds)
     if not torch.equal(got, want):
@@ -119,6 +121,7 @@ def k2_check(ks, posted, arrival, bounds) -> None:
         raise AssertionError(f"queue_walk differs from its plain version at "
                              f"arrival {bad}: {int(got[bad])} vs "
                              f"{int(want[bad])}")
+    return int((got - want).abs().max()) if got.numel() else 0
 
 
 def kernel_parity(ks, dev) -> None:
@@ -332,19 +335,11 @@ def k2_chain_ops(ks, posted, arrival, bounds):
     return int(per_region.max()), int(per_region.sum())
 
 
-def kernel_rows(ks, launches, captured, clock_hz):
-    rows = []
-    # K1: every captured call against the plain version, figures at the
-    # largest one
-    calls = captured["segment_reduce"]
-    errs = [k1_err(ks, *c) for c in calls]
-    err = max(e for e, _ in errs)
-    for v, i, n_seg in calls:
-        log(f"K1 full-width call n={v.numel()}, n_seg={n_seg}: launch alone "
-            f"{cuda_ms(lambda: ks._segment_reduce_cuda(v, i, n_seg), 20):.4f}"
-            f" ms")
-    values, ids, n_seg = max(calls, key=lambda c: c[0].numel())
-    n = values.numel()
+def k1_call_figures(ks, values, ids, n_seg) -> dict:
+    """CUDA-event times of one K1 call: the wrapper as the main path calls
+    it, the launch alone, the plain version and the one-call PyTorch
+    yardstick, beside the bytes bound (8 B read per message, 8 B written
+    per segment)."""
     idx = ids.long()
     s_out = torch.empty(n_seg, device=values.device)
     m_out = torch.empty(n_seg, device=values.device)
@@ -354,50 +349,95 @@ def kernel_rows(ks, launches, captured, clock_hz):
         m_out.zero_().scatter_reduce_(0, idx, values, "amax",
                                       include_self=False)
 
-    reps = 50
-    ms = cuda_ms(lambda: ks.segment_reduce(values, ids, n_seg), reps)
-    plain = cuda_ms(lambda: ks.segment_reduce_plain(values, ids, n_seg), reps)
-    lib = cuda_ms(library, reps)
-    bare = cuda_ms(lambda: ks._segment_reduce_cuda(values, ids, n_seg), reps)
-    bound = (8 * n + 8 * n_seg) / HBM_BYTES_PER_S * 1e3
-    log(f"K1 at the largest full-width call: n={n}, n_seg={n_seg}; launch "
-        f"alone {bare:.4f} ms; {len(calls)} calls checked against the plain "
-        f"version, worst relative error {max(r for _, r in errs):.3g}")
-    rows.append(dict(name="segment_reduce", route="cuda",
-                     source=KERNEL_ROWS["segment_reduce"][0],
-                     replaces=KERNEL_ROWS["segment_reduce"][1],
-                     launches=launches["segment_reduce"], max_abs_err=err,
-                     ms=ms, plain_ms=plain, bound_ms=bound, bound_by="bytes",
-                     library_ms=lib, kernel_ms=bare, n=n, n_seg=n_seg))
-    # K2: bit-equal on every captured call, figures at the largest one
-    calls = captured["queue_walk"]
-    for c in calls:
-        k2_check(ks, *c)
-    posted, arrival, bounds = max(calls, key=lambda c: c[0].numel())
+    reps = 20
+    return dict(
+        ms=cuda_ms(lambda: ks.segment_reduce(values, ids, n_seg), reps),
+        kernel_ms=cuda_ms(lambda: ks._segment_reduce_cuda(values, ids, n_seg),
+                          reps),
+        plain_ms=cuda_ms(lambda: ks.segment_reduce_plain(values, ids, n_seg),
+                         reps),
+        library_ms=cuda_ms(library, reps),
+        bound_ms=(8 * values.numel() + 8 * n_seg) / HBM_BYTES_PER_S * 1e3)
+
+
+def k2_call_figures(ks, posted, arrival, bounds, clock_hz) -> dict:
+    """CUDA-event times of one K2 call (wrapper with its layout ops, the
+    launch alone, the plain lock-step version) beside its bound: the
+    larger of its bytes (4 B in and 8 B out per arrival, 16 B per region),
+    its longest region's serial chain at one step per SM clock, and all
+    regions' steps over every INT32 lane of the card."""
     N, R = posted.numel(), bounds.numel() - 1
     chain, total = k2_chain_ops(ks, posted, arrival, bounds)
-    ms = cuda_ms(lambda: ks.queue_walk(posted, arrival, bounds), 10)
     layout = ks._queue_layout(posted, arrival, bounds)
-    bare = cuda_ms(lambda: ks._queue_walk_cuda(*layout), 10)
-    plain = cuda_ms(lambda: ks.queue_walk_plain(posted, arrival, bounds), 2)
-    counts = bounds[1:] - bounds[:-1]
     t_bytes = (4 * N + 16 * R + 8 * N) / HBM_BYTES_PER_S
     t_chain = chain / clock_hz
     t_total = total / (INT32_LANES_PER_SM * SMS * clock_hz)
-    bound = max(t_bytes, t_chain, t_total) * 1e3
-    log(f"K2 at the largest full-width call: {N} arrivals in {R} regions, "
-        f"longest region {int(counts.max())} arrivals, serial chain {chain} "
-        f"steps, all regions {total} steps; launch alone {bare:.4f} ms; "
-        f"{len(calls)} calls bit-equal")
+    counts = bounds[1:] - bounds[:-1]
+    return dict(
+        ms=cuda_ms(lambda: ks.queue_walk(posted, arrival, bounds), 10),
+        kernel_ms=cuda_ms(lambda: ks._queue_walk_cuda(*layout), 10),
+        plain_ms=cuda_ms(lambda: ks.queue_walk_plain(posted, arrival, bounds),
+                         2),
+        bound_ms=max(t_bytes, t_chain, t_total) * 1e3,
+        bound_by="bytes" if t_bytes >= max(t_chain, t_total) else
+        "operations",
+        arrivals=N, regions=R, longest=int(counts.max()) if R else 0,
+        chain_steps=chain, all_steps=total)
+
+
+def kernel_rows(ks, launches, captured, clock_hz):
+    """One row per kernel over every call the full-width run made: each
+    call is held to the plain version, and the row's times and bound are
+    sums over those calls (the slowest call is named beside them)."""
+    rows = []
+    calls = captured["segment_reduce"]
+    errs = [k1_err(ks, *c) for c in calls]
+    figs = [k1_call_figures(ks, *c) for c in calls]
+    for (v, _, n_seg), f in zip(calls, figs):
+        log(f"K1 full-width call n={v.numel()}, n_seg={n_seg}: wrapper "
+            f"{f['ms']:.4f} ms, launch alone {f['kernel_ms']:.4f} ms, plain "
+            f"{f['plain_ms']:.4f} ms, library {f['library_ms']:.4f} ms, "
+            f"bound {f['bound_ms']:.5f} ms (bytes)")
+    slow = max(range(len(calls)), key=lambda k: figs[k]["kernel_ms"])
+    total = {k: sum(f[k] for f in figs) for k in
+             ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"K1 over the full-width run's {len(calls)} calls: wrapper "
+        f"{total['ms']:.4f} ms, launch alone {total['kernel_ms']:.4f} ms, "
+        f"plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f}"
+        f" ms, bound {total['bound_ms']:.5f} ms; worst relative error "
+        f"{max(r for _, r in errs):.3g}")
+    rows.append(dict(name="segment_reduce", route="cuda",
+                     source=KERNEL_ROWS["segment_reduce"][0],
+                     replaces=KERNEL_ROWS["segment_reduce"][1],
+                     launches=launches["segment_reduce"],
+                     max_abs_err=max(e for e, _ in errs), ms=total["ms"],
+                     plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
+                     bound_by="bytes", library_ms=total["library_ms"],
+                     kernel_ms=total["kernel_ms"], calls=len(calls),
+                     slowest_call=dict(n=calls[slow][0].numel(),
+                                       n_seg=calls[slow][2], **figs[slow])))
+    calls = captured["queue_walk"]
+    errs = [k2_check(ks, *c) for c in calls]
+    figs = [k2_call_figures(ks, *c, clock_hz) for c in calls]
+    for f in figs:
+        log(f"K2 full-width call: {f['arrivals']} arrivals in {f['regions']} "
+            f"regions, longest region {f['longest']} arrivals, serial chain "
+            f"{f['chain_steps']} steps, all regions {f['all_steps']} steps; "
+            f"wrapper {f['ms']:.4f} ms, launch alone {f['kernel_ms']:.4f} ms, "
+            f"plain {f['plain_ms']:.4f} ms, bound {f['bound_ms']:.5f} ms "
+            f"({f['bound_by']}); bit-equal")
+    total = {k: sum(f[k] for f in figs) for k in
+             ("ms", "kernel_ms", "plain_ms", "bound_ms")}
+    slow = max(range(len(calls)), key=lambda k: figs[k]["kernel_ms"])
     rows.append(dict(name="queue_walk", route="cuda",
                      source=KERNEL_ROWS["queue_walk"][0],
                      replaces=KERNEL_ROWS["queue_walk"][1],
-                     launches=launches["queue_walk"], max_abs_err=0.0,
-                     ms=ms, plain_ms=plain, bound_ms=bound,
-                     bound_by="bytes" if t_bytes >= max(t_chain, t_total)
-                     else "operations",
-                     library_ms=None, kernel_ms=bare, arrivals=N, regions=R,
-                     chain_steps=chain))
+                     launches=launches["queue_walk"], max_abs_err=max(errs),
+                     ms=total["ms"], plain_ms=total["plain_ms"],
+                     bound_ms=total["bound_ms"],
+                     bound_by=figs[slow]["bound_by"], library_ms=None,
+                     kernel_ms=total["kernel_ms"], calls=len(calls),
+                     slowest_call=figs[slow]))
     return rows
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import comm_stack as ks
 # the plain version of K2 under the reference's name: all receivers'
 # Fenwick walks advanced in lock-step rounds, in torch ops
@@ -196,9 +197,10 @@ def _assemble_orders(flat, slots, counts, cbounds, local, group,
 
 def grouped_queue_steps(group, n_slots, recv_post_order=None,
                         arrival_order=None, groups=None, describe=None,
-                        device="cpu") -> torch.Tensor:
+                        device=None) -> torch.Tensor:
     """Exact receive-queue traversal-step totals for ``n_slots`` receiver
-    slots, as an int64 tensor on ``device``.
+    slots, as an int64 tensor on ``device`` (``None`` means CUDA; the host
+    runs only with ``device="cpu"``).
 
     ``group[i]`` (host numpy) is the receiver slot of message ``i`` (a
     process id, or a packed ``(phase, process)`` key for a stacked sweep).
@@ -212,6 +214,7 @@ def grouped_queue_steps(group, n_slots, recv_post_order=None,
     ``groups`` optionally supplies a precomputed ``(order, bounds)`` stable
     grouping; ``describe`` renders a slot id in error messages.
     """
+    device = resolve_device(device)
     group = np.asarray(group, dtype=np.int64)
     if describe is None:
         describe = "receiver {}".format

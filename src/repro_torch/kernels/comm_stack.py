@@ -268,8 +268,13 @@ def queue_walk_plain(posted: torch.Tensor, arrival: torch.Tensor,
     and one scatter-add removal chain over every still-active region;
     chains that climb past their region's span park at the shared sink.
     """
-    b, starts, counts, toff, span, tree_len = _queue_layout(
-        posted, arrival, bounds)
+    return _queue_walk_lockstep(*_queue_layout(posted, arrival, bounds))
+
+
+def _queue_walk_lockstep(b, starts, counts, toff, span,
+                         tree_len: int) -> torch.Tensor:
+    """The lock-step rounds of :func:`queue_walk_plain` on a checked layout
+    (:func:`_queue_layout`)."""
     dev = b.device
     N = b.numel()
     steps = torch.zeros(N, dtype=torch.int64, device=dev)
@@ -327,7 +332,7 @@ def queue_walk(posted: torch.Tensor, arrival: torch.Tensor,
         raise ValueError(f"queue walk tree of {tree_len} cells exceeds "
                          "int32 indexing")
     if posted.device.type == "cpu":
-        return queue_walk_plain(posted, arrival, bounds)
+        return _queue_walk_lockstep(*layout)
     return _queue_walk_cuda(*layout)
 
 

@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.comm.phase import CommPhase  # noqa: E402
+from repro_torch.comm.primitives import grouped_queue_steps  # noqa: E402
 from repro_torch.comm.stack import PhaseStack  # noqa: E402
 from repro_torch.comm.strategies import best_strategy_many  # noqa: E402
 from repro_torch.net.machine import blue_waters_machine  # noqa: E402
@@ -56,5 +57,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         PhaseStack.build([pat.bind(m)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CommPhase.build(m, [0], [40], [8.0]).link_contention()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        grouped_queue_steps(np.array([1, 1]), 2,
+                            arrival_order={1: np.array([1, 0])})
     # asked for explicitly, the host runs the plain versions
     assert best_strategy_many([pat], m, device="cpu")[0].model_winner
+    assert grouped_queue_steps(np.array([1, 1]), 2,
+                               arrival_order={1: np.array([1, 0])},
+                               device="cpu").tolist() == [0, 3]
