@@ -1,32 +1,40 @@
-"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one GPU and check them.
 
     python3 chip_smoke.py
 
 Phases, in order (any failure raises and the script exits non-zero):
 
-1. build both CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+1. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, started together) and print the card;
-2. hold K1 (segment reduce) and K2 (queue walk) to their plain PyTorch
-   versions on the card, on ragged shapes;
+2. hold K1 (segment reduce), K2 (queue walk) and K3 (block-ELL SpMV) to
+   their plain PyTorch versions on the card, on ragged shapes;
 3. the small slice: ``best_strategy_many`` over the AMG hierarchy of
    ``elasticity_like_3d(16)`` on ``blue_waters_machine((4, 4, 2))``, on
-   cuda and on cpu — identical winners, totals allclose;
+   cuda and on cpu — identical winners, totals allclose; then one V-cycle
+   on that hierarchy on cuda and on cpu, held together;
 4. the full-width slice: ``elasticity_like_3d(40)`` (192,000 dof), its AMG
    hierarchy, each level partitioned over ``min(8192, rows // 2)`` ranks of
    ``blue_waters_machine((8, 8, 4))`` (8,192 ranks), swept by
-   ``best_strategy_many`` on cuda with the launch counts set to 0 just
+   ``best_strategy_many`` on cuda with K1's and K2's counts set to 0 just
    before; every kernel input of that run is captured and each kernel's
    output there is held to its plain version;
-5. one ``{"kernels": [...]}`` JSON line: launches on the full-width run,
+5. the full-width V-cycle on the same hierarchy: ``DeviceHierarchy.build``
+   timed, one V(2,2) cycle on cuda with K3's count set to 0 just before
+   (every SpMV is one K3 launch: 85 on the 6-level hierarchy) and its
+   inputs captured, held to the same cycle on cpu, then 10 cycles with the
+   relative residual computed on the host in float64;
+6. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs,
    worst error against the plain version, and CUDA-event times of the
-   kernel, its plain version and the one-call PyTorch yardstick, each
-   summed over every call the full-width run made, beside the least time
-   the card could take for the same calls;
-6. the card's name and power limit as ``nvidia-smi`` reports them, then,
+   wrapper, the launch alone, the plain version and the one-call PyTorch
+   yardstick, each summed over every call the full-width run made, beside
+   the least time the card could take for the same calls;
+7. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
-Exits non-zero, printing no result, when no CUDA device is available or
-the port's sources are not beside the script.
+Float32 matrix products run in full float32 (TF32 is switched off), so the
+plain versions are exact references up to the order of their sums.  Exits
+non-zero, printing no result, when no CUDA device is available or the
+port's sources are not beside the script.
 """
 from __future__ import annotations
 
@@ -51,7 +59,19 @@ KERNEL_ROWS = {
                        "src/repro/kernels/comm_stack.py:410"),
     "queue_walk": ("src/repro_torch/kernels/csrc/queue_walk.cu",
                    "src/repro/kernels/comm_stack.py:647"),
+    "spmv_block_ell": ("src/repro_torch/kernels/csrc/spmv_ell.cu",
+                       "src/repro/kernels/spmv_ell.py:27"),
 }
+# K3 against its plain version: both sum the same float32 products of a row,
+# in another order (no atomics, so the card's result does not change from
+# run to run); each sum is off by far less than 1e-5 of the row's sum of
+# magnitudes.  bfloat16 outputs may round one ulp (2^-8) apart on top.
+K3_RTOL = 1e-5
+BF16_ULP = 2.0 ** -8
+# The V-cycle on cuda against cpu: 85 such SpMVs and the Jacobi updates in
+# float32; relative L2 gap allowed, the same bound the CPU tests hold the
+# float32 cycle to against the float64 reference (measured there: ~1.5e-7).
+VCYCLE_RTOL = 1e-5
 
 
 def log(*a):
@@ -150,6 +170,65 @@ def kernel_parity(ks, dev) -> None:
     log("K2 parity: 5 region layouts, bit-equal")
 
 
+def k3_err(ell, blocks, cols, x) -> float:
+    """K3 against its plain version on one input; returns the worst abs
+    error, or raises if a row is off by more than K3_RTOL of its sum of
+    magnitudes (plus one bfloat16 rounding step of the output)."""
+    got = ell.spmv_block_ell(blocks, cols, x)
+    want = ell.spmv_block_ell_plain(blocks, cols, x)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"spmv_block_ell gave {got.dtype} "
+                             f"{tuple(got.shape)}, expected {want.dtype} "
+                             f"{tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    if not got.numel():
+        return 0.0
+    scale = ell.spmv_block_ell_plain(blocks.float().abs(), cols,
+                                     x.float().abs())
+    tol = K3_RTOL * scale
+    if x.dtype == torch.bfloat16:
+        tol = tol + BF16_ULP * want.abs()
+    err = (got - want).abs()
+    if bool((err > tol).any()) or not bool(torch.isfinite(got).all()):
+        bad = int(torch.argmax(err - tol))
+        raise AssertionError(f"spmv_block_ell off at row {bad}: "
+                             f"{float(got[bad])} vs {float(want[bad])} "
+                             f"(blocks {tuple(blocks.shape)}, {x.dtype})")
+    return float(err.max())
+
+
+def k3_parity(dev) -> None:
+    """K3 on ragged shapes: bs 3 (the scalar path), 4, 8 and 16; max_bpr 0
+    and 1; a rectangular P and its P^T; rows past n; float32, bfloat16 and
+    mixed; an x that is not 16-byte aligned."""
+    from repro_torch.kernels import spmv_ell as ell
+    from repro_torch.sparse.amg import build_hierarchy
+    from repro_torch.sparse.csr import CSR, eye
+    from repro_torch.sparse.problems import elasticity_like_3d, poisson_3d
+
+    rng = np.random.default_rng(1)
+    P = build_hierarchy(elasticity_like_3d(8))[1].P          # 1536 x 145
+    mats = {"poisson_3d(7)": poisson_3d(7), "P": P, "P^T": P.transpose(),
+            "eye(37)": eye(37),                               # max_bpr 1
+            "zero 21x13": CSR(np.zeros(22, np.int64), np.zeros(0, np.int64),
+                              np.zeros(0), (21, 13))}         # max_bpr 0
+    worst, n = 0.0, 0
+    for name, A in mats.items():
+        for bs in (3, 4, 8, 16):
+            blocks, cols, _ = ell.csr_to_block_ell(A, bs, dev)
+            ncb = -(-A.n_cols // bs)
+            x = torch.from_numpy(rng.standard_normal(ncb * bs + 1)
+                                 .astype(np.float32)).to(dev)
+            for xb, xx in ((blocks, x[:-1]), (blocks, x[1:]),
+                           (blocks.bfloat16(), x[:-1].bfloat16()),
+                           (blocks.bfloat16(), x[:-1])):
+                worst = max(worst, k3_err(ell, xb, cols, xx))
+                n += 1
+    torch.cuda.synchronize()
+    log(f"K3 parity: {n} cases ({', '.join(mats)}; bs 3, 4, 8, 16; float32, "
+        f"unaligned x, bfloat16, mixed), max abs err {worst:.3g}")
+
+
 # -- phases 3 and 4: the slice ------------------------------------------------
 
 def amg_patterns(nx: int, machine, max_ranks: int):
@@ -202,6 +281,29 @@ def small_slice() -> None:
         f"levels, {m.n_procs} ranks; winners (model/sim) "
         f"{[(v.model_winner, v.sim_winner) for v in gpu]} equal on cuda "
         f"({t_gpu:.2f} s) and cpu ({t_cpu:.2f} s), totals allclose")
+    return levels
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def small_vcycle(levels) -> None:
+    """One V-cycle on the small hierarchy on cuda and on cpu, held
+    together at VCYCLE_RTOL (relative L2)."""
+    from repro_torch.sparse.amg import DeviceHierarchy, vcycle
+
+    h = DeviceHierarchy.build(levels)
+    b = np.random.default_rng(0).standard_normal(levels[0].A.n_rows)
+    x_gpu, t_gpu = sync_time(lambda: vcycle(h, b))
+    x_cpu = vcycle(h.to("cpu"), b)
+    rel = rel_l2(x_gpu, x_cpu)
+    if not rel <= VCYCLE_RTOL or not bool(torch.isfinite(x_gpu).all()):
+        raise AssertionError(f"small V-cycle: cuda vs cpu relative L2 {rel}")
+    log(f"small V-cycle: elasticity_like_3d({SMALL['nx']}), levels "
+        f"{[lvl.A.n_rows for lvl in levels]}; cuda ({t_gpu * 1e3:.2f} ms) vs "
+        f"cpu relative L2 {rel:.3g} (limit {VCYCLE_RTOL})")
 
 
 def full_slice(ks):
@@ -279,13 +381,99 @@ def full_slice(ks):
             raise AssertionError(f"{name} was not launched on the full-width "
                                  "run")
     device_share(lambda: strategies.best_strategy_many(pats, m))
-    return launches, captured
+    return launches, captured, levels
 
 
-def device_share(fn) -> None:
+def full_vcycle(levels):
+    """The full-width V-cycle with K3's count set to 0 just before and every
+    K3 input captured; returns (launches, captured calls, operator label of
+    every captured call, host CSR of every label, K3's device ms over a
+    profiled cycle)."""
+    from repro_torch.kernels import spmv_ell as ell
+    from repro_torch.sparse.amg import DeviceHierarchy, vcycle
+
+    A = levels[0].A
+    h, t_build = sync_time(lambda: DeviceHierarchy.build(levels, bs=8))
+    tensors = [t for lv in h.levels for op in (lv.A, lv.P, lv.PT) if op
+               for t in op] + [lv.dinv for lv in h.levels]
+    label, host = {}, {}
+    for k, (lv, hl) in enumerate(zip(h.levels, levels)):
+        label[lv.A[0].data_ptr()] = f"L{k} A"
+        host[f"L{k} A"] = hl.A
+        if lv.P is not None:
+            label[lv.P[0].data_ptr()] = f"L{k} P"
+            label[lv.PT[0].data_ptr()] = f"L{k} P^T"
+            host[f"L{k} P"] = hl.P
+            host[f"L{k} P^T"] = hl.P.transpose()
+    max_bpr = [tuple(op[0].shape[1] for op in (lv.A, lv.P, lv.PT) if op)
+               for lv in h.levels]
+    log(f"full V-cycle: DeviceHierarchy.build {t_build:.3f} s (host "
+        f"block-ELL conversion + copies), {len(h.levels)} levels, "
+        f"{sum(t.numel() * t.element_size() for t in tensors)} bytes on the "
+        f"card; max_bpr per level (A, P, P^T): {max_bpr}")
+
+    b = np.random.default_rng(0).standard_normal(A.n_rows)
+    vcycle(h, b)                                      # warm-up, not counted
+    captured = []
+    real = ell.spmv_block_ell
+
+    def spy(*args):
+        captured.append(args)
+        return real(*args)
+
+    ell.spmv_block_ell = spy
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ell.reset_launches()
+        x_gpu, wall = sync_time(lambda: vcycle(h, b))
+        launches = ell.LAUNCHES["spmv_block_ell"]
+    finally:
+        ell.spmv_block_ell = real
+    peak = torch.cuda.max_memory_allocated()
+    expected = 7 * (len(levels) - 1) + 50
+    log(f"full V-cycle launches: {{'spmv_block_ell': {launches}}} (expected "
+        f"{expected}: 7 per level above the coarsest, 50 on it)")
+    if launches != expected:
+        raise AssertionError(f"spmv_block_ell launched {launches} times on "
+                             f"the full-width V-cycle, expected {expected}")
+    x_cpu, t_cpu = sync_time(lambda: vcycle(h.to("cpu"), b))
+    rel = rel_l2(x_gpu, x_cpu)
+    if not rel <= VCYCLE_RTOL or not bool(torch.isfinite(x_gpu).all()):
+        raise AssertionError(f"full V-cycle: cuda vs cpu relative L2 {rel}")
+    walls = [sync_time(lambda: vcycle(h, b))[1] for _ in range(5)]
+    log(f"full V-cycle: one cycle on cuda {wall * 1e3:.3f} ms wall (counted "
+        f"run), 5 more {', '.join(f'{w * 1e3:.3f}' for w in walls)} ms; "
+        f"max_memory_allocated {peak} bytes; cpu plain cycle {t_cpu:.3f} s, "
+        f"cuda vs cpu relative L2 {rel:.3g} (limit {VCYCLE_RTOL})")
+    # K3's own device time over a whole cycle: the CUDA-event times of
+    # k3_row include the host's launch cost, which the small calls wait on
+    k3_device = [(us, n) for us, n, key in device_share(lambda: vcycle(h, b))
+                 if "ell_rows" in key]
+    device_ms = sum(us for us, _ in k3_device) / 1e3 if k3_device else None
+    log(f"full V-cycle: K3 device time under the profiler "
+        f"{device_ms} ms over {sum(n for _, n in k3_device)} launches")
+
+    x, res = None, []
+    for _ in range(10):
+        x = vcycle(h, b, x)
+        r = b - A.spmv(x.double().cpu().numpy())
+        res.append(float(np.linalg.norm(r) / np.linalg.norm(b)))
+    log("full V-cycle: relative residual over 10 cycles (host float64 "
+        "CSR.spmv): " + ", ".join(f"{r:.3e}" for r in res))
+    falling = all(nxt < cur / 2 for cur, nxt in zip(res, res[1:])
+                  if cur > 1e-5)
+    if not (res[-1] < 1e-3 and falling):
+        raise AssertionError(f"full V-cycle residuals do not fall: {res}")
+    return launches, captured, [label[c[0].data_ptr()] for c in captured], \
+        host, device_ms
+
+
+def device_share(fn) -> list:
     """Run ``fn`` again under ``torch.profiler`` and print the device-busy
     share of its wall time (sum of device self time over the wall time of
-    the profiled run) and the device time by kernel."""
+    the profiled run) and the device time by kernel; returns the
+    ``(device us, count, kernel name)`` rows."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -300,12 +488,13 @@ def device_share(fn) -> None:
     busy = sum(r[0] for r in rows) / 1e6
     if not rows:
         log("profiled rerun: the profiler saw no device time (not measured)")
-        return
+        return rows
     log(f"profiled rerun: wall {wall:.3f} s, device busy {busy:.4f} s "
         f"({100 * busy / wall:.2f} % of wall, idle {100 - 100 * busy / wall:.2f}"
         f" %); device time by kernel:")
     for us, count, key in sorted(rows, reverse=True)[:10]:
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return rows
 
 
 # -- phase 5: kernel figures ------------------------------------------------
@@ -441,6 +630,75 @@ def kernel_rows(ks, launches, captured, clock_hz):
     return rows
 
 
+def k3_call_figures(ell, blocks, cols, x, S) -> dict:
+    """CUDA-event times of one K3 call (the wrapper as the V-cycle calls it,
+    the launch alone, the plain version, and ``S @ x`` with ``S`` the same
+    matrix as a float32 ``torch.sparse_csr_tensor``, the one-call PyTorch
+    yardstick) beside its bytes bound: blocks, ids and x read once and y
+    written once at 3.35 TB/s."""
+    nbr, _, bs, _ = blocks.shape
+    xs = x[:S.shape[1]]
+    moved = (blocks.numel() * blocks.element_size() + cols.numel() * 4
+             + x.numel() * x.element_size() + nbr * bs * x.element_size())
+    reps = 20
+    return dict(
+        ms=cuda_ms(lambda: ell.spmv_block_ell(blocks, cols, x), reps),
+        kernel_ms=cuda_ms(lambda: ell._spmv_block_ell_cuda(blocks, cols, x),
+                          reps),
+        plain_ms=cuda_ms(lambda: ell.spmv_block_ell_plain(blocks, cols, x),
+                         reps),
+        library_ms=cuda_ms(lambda: S @ xs, reps),
+        bound_ms=moved / HBM_BYTES_PER_S * 1e3, bytes=moved)
+
+
+def k3_row(launches, captured, labels, host, device_ms) -> dict:
+    """K3's row over every call of the full-width V-cycle: each call held to
+    the plain version, times and bound summed, one line per operator, the
+    slowest call named beside the sums, and the kernel's device time over
+    the cycle as the profiler saw it (``device_ms``)."""
+    from repro_torch.kernels import spmv_ell as ell
+
+    dev = captured[0][0].device
+    sparse = {name: torch.sparse_csr_tensor(
+        torch.from_numpy(M.indptr), torch.from_numpy(M.indices),
+        torch.from_numpy(M.data.astype(np.float32)), size=M.shape,
+        device=dev) for name, M in host.items()}
+    errs = [k3_err(ell, *c) for c in captured]
+    figs = [k3_call_figures(ell, *c, sparse[name])
+            for c, name in zip(captured, labels)]
+    keys = ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
+    for name in dict.fromkeys(labels):
+        mine = [k for k, lab in enumerate(labels) if lab == name]
+        blocks = captured[mine[0]][0]
+        tot = {k: sum(figs[i][k] for i in mine) for k in keys}
+        M = host[name]
+        log(f"K3 {name}: {len(mine)} call(s), {M.shape[0]} x {M.shape[1]}, "
+            f"{M.nnz} nnz, block-ELL {tuple(blocks.shape)} "
+            f"({figs[mine[0]]['bytes']} bytes a call); summed: wrapper "
+            f"{tot['ms']:.4f} ms, launch alone {tot['kernel_ms']:.4f} ms "
+            f"({sum(figs[i]['bytes'] for i in mine) / tot['kernel_ms'] / 1e6:.0f}"
+            f" GB/s), plain {tot['plain_ms']:.4f} ms, library "
+            f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms "
+            f"(bytes)")
+    total = {k: sum(f[k] for f in figs) for k in keys}
+    slow = max(range(len(figs)), key=lambda k: figs[k]["kernel_ms"])
+    log(f"K3 over the full-width V-cycle's {len(figs)} calls: wrapper "
+        f"{total['ms']:.4f} ms, launch alone {total['kernel_ms']:.4f} ms, "
+        f"plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f}"
+        f" ms, bound {total['bound_ms']:.5f} ms "
+        f"({sum(f['bytes'] for f in figs)} bytes); slowest call "
+        f"{labels[slow]}; max abs err {max(errs):.3g}")
+    return dict(name="spmv_block_ell", route="cuda",
+                source=KERNEL_ROWS["spmv_block_ell"][0],
+                replaces=KERNEL_ROWS["spmv_block_ell"][1], launches=launches,
+                max_abs_err=max(errs), ms=total["ms"],
+                plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
+                bound_by="bytes", library_ms=total["library_ms"],
+                kernel_ms=total["kernel_ms"], device_ms=device_ms,
+                calls=len(figs),
+                slowest_call=dict(op=labels[slow], **figs[slow]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -449,6 +707,8 @@ def main() -> int:
     from repro_torch.kernels import comm_stack as ks
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     log(f"card: {nvidia_smi('name,power.limit')}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -462,9 +722,12 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     kernel_parity(ks, dev)
-    small_slice()
-    launches, captured = full_slice(ks)
+    k3_parity(dev)
+    small_vcycle(small_slice())
+    launches, captured, levels = full_slice(ks)
+    k3_run = full_vcycle(levels)
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
+    rows.append(k3_row(*k3_run))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ of it.  Host-side construction (the sparse substrate, ``CommPhase.build``,
 the strategy rewrites, receive-order assembly) stays numpy; every pricing
 pass over a :class:`~repro_torch.comm.stack.PhaseStack` runs on a torch
 device, and its two reductions go through the hand-written CUDA kernels in
-:mod:`repro_torch.kernels.comm_stack`.
+:mod:`repro_torch.kernels.comm_stack`.  The AMG V-cycle
+(:func:`repro_torch.sparse.amg.vcycle`) runs on the device too, every SpMV
+through the block-ELL kernel of :mod:`repro_torch.kernels.spmv_ell`.
 
 Every entry point takes ``device=None``, which means CUDA
 (:func:`repro_torch.device.resolve_device`); the host runs only when the

@@ -1,1 +1,2 @@
-"""Hand-written CUDA kernels for the PhaseStack passes, with plain versions."""
+"""Hand-written CUDA kernels of the port (the PhaseStack passes and the
+block-ELL SpMV), each with its plain PyTorch version."""

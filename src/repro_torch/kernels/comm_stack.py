@@ -1,5 +1,4 @@
-"""The two device kernels of the PhaseStack passes, their plain versions and
-their build.
+"""The two device kernels of the PhaseStack passes and their plain versions.
 
 K1, :func:`segment_reduce`
     Per-segment sum *and* maximum of float32 values keyed by int32 segment
@@ -19,38 +18,25 @@ CUDA tensor launches the kernel or raises — there is no fallback.  Every
 launch adds one to :data:`LAUNCHES`, so a run can show that its main path
 went through the kernels.
 
-The kernels are built with ``nvcc`` from the sources beside this module at
-first use, into ``_build/`` (one shared library per source, all compiled
-at once, named by a hash of source and flags), and bound with ``ctypes``.
-Nothing is compiled when the module is imported.
+The kernels are built at first use by :mod:`repro_torch.kernels.build`
+(``nvcc`` into ``_build/``, bound with ``ctypes``); ``build_kernels`` is
+re-exported here.  Nothing is compiled when the module is imported.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
+
+from .build import build_kernels, kernel, launch  # noqa: F401
 
 #: Kernel launches per wrapper since the counts were last reset.
 LAUNCHES = {"segment_reduce": 0, "queue_walk": 0}
 
-_HERE = Path(__file__).resolve().parent
-CSRC = _HERE / "csrc"
-BUILD_DIR = _HERE / "_build"
-SOURCES = {"segment_reduce": "segment_reduce.cu",
-           "queue_walk": "queue_walk.cu"}
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "segment_reduce": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P],
-    "queue_walk": [_P, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P],
+    "segment_reduce": (_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P),
+    "queue_walk": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int),
 }
 _INT32_MAX = 2 ** 31 - 1
 
@@ -61,76 +47,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-# -- build ---------------------------------------------------------------------
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the CUDA "
-                       "kernels cannot be built")
-
-
-def library_path(name: str) -> Path:
-    """Where the shared library of kernel ``name`` is built: the name
-    carries a hash of the source and the compiler flags, so an edit to
-    either builds a new library."""
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
-
-
-def build_kernels() -> dict[str, str]:
-    """Compile every kernel source that has no library yet, one ``nvcc``
-    process per source, all started together.  Returns each compiled
-    kernel's compiler output (``-Xptxas -v``: registers, spills); a failed
-    compile raises with its output after every process has ended."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    for name, src in SOURCES.items():
-        lib = library_path(name)
-        if lib.exists():
-            continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        running[name] = (proc, tmp, lib)
-    logs, failed = {}, []
-    for name, (proc, tmp, lib) in running.items():
-        out, _ = proc.communicate()
-        logs[name] = out.decode(errors="replace")
-        if proc.returncode:
-            failed.append(name)
-        else:
-            os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    return logs
-
-
-@functools.cache
-def _kernel(name: str):
-    """The bound C entry point of kernel ``name`` (built on first use)."""
-    build_kernels()
-    fn = getattr(ctypes.CDLL(str(library_path(name))), name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(name)(*args, stream)
-    if err:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
-                           f"{err}")
+    launch(kernel(name, name, _ARGTYPES[name]), device, *args)
     LAUNCHES[name] += 1
 
 

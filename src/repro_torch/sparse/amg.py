@@ -10,14 +10,26 @@ splitting (PMIS-flavored, deterministic), direct interpolation with
 positive/negative splitting, and the Galerkin product A_c = P^T A P via two
 SpGEMMs.
 
-Port note: host-side numpy, the same hierarchy as the reference for the same
-matrix and seed; each level's SpMV halo pattern is what reaches the device.
+The V-cycle (:func:`vcycle`, V(2,2) with damped Jacobi) runs on the device:
+:meth:`DeviceHierarchy.build` moves each level's A, P and P^T to it once in
+block-ELL form, with ``1/diag(A)`` in float32, and every SpMV of the cycle
+is one call of :func:`repro_torch.kernels.spmv_ell.spmv_block_ell` (kernel
+K3 on the card).
+
+Port note: the hierarchy is built on the host in numpy, the same hierarchy as
+the reference for the same matrix and seed; each level's SpMV halo pattern
+and its block-ELL operators are what reach the device.  The cycle runs in
+float32 where the reference runs in float64.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import spmv_ell as ell
 
 from .csr import CSR
 
@@ -145,3 +157,112 @@ def build_hierarchy(A: CSR, theta: float = 0.25, max_levels: int = 12,
         if Ac.n_rows <= min_size:
             break
     return levels
+
+
+# ----------------------------------------------------------- V-cycle --------
+@dataclasses.dataclass
+class DeviceLevel:
+    """One level of a :class:`DeviceHierarchy`.  ``A``, ``P`` and ``PT`` are
+    block-ELL ``(blocks, cols)`` pairs; vectors of the level are zero-padded
+    to ``dinv.numel()`` entries (whole block rows)."""
+    n: int                              # rows of A
+    A: tuple[torch.Tensor, torch.Tensor]
+    dinv: torch.Tensor                  # float32 1/diag(A), 0 past n
+    P: tuple | None     # prolongation to the next finer level (None on finest)
+    PT: tuple | None    # its transpose, the restriction
+
+
+@dataclasses.dataclass
+class DeviceHierarchy:
+    """An AMG hierarchy on a torch device, in the layout K3 takes."""
+    levels: list[DeviceLevel]
+    device: torch.device
+
+    @classmethod
+    def build(cls, levels: list[AMGLevel], bs: int = 8,
+              device=None) -> "DeviceHierarchy":
+        """Move the host hierarchy ``levels`` to ``device`` (``None`` means
+        CUDA) once: each level's A, P and P^T (transposed here, once) in
+        block-ELL with ``bs x bs`` blocks, and ``1/diag(A)`` in float32."""
+        dev = resolve_device(device)
+        out = []
+        for lv in levels:
+            blocks, cols, _ = ell.csr_to_block_ell(lv.A, bs, dev)
+            dinv = np.zeros(blocks.shape[0] * blocks.shape[2])
+            dinv[:lv.A.n_rows] = 1.0 / lv.A.diagonal()
+            P = PT = None
+            if lv.P is not None:
+                P = ell.csr_to_block_ell(lv.P, bs, dev)[:2]
+                PT = ell.csr_to_block_ell(lv.P.transpose(), bs, dev)[:2]
+            out.append(DeviceLevel(
+                lv.A.n_rows, (blocks, cols),
+                torch.from_numpy(dinv.astype(np.float32)).to(dev), P, PT))
+        return cls(out, dev)
+
+    def to(self, device) -> "DeviceHierarchy":
+        """The same hierarchy on ``device`` (``None`` means CUDA)."""
+        dev = resolve_device(device)
+
+        def move(op):
+            return None if op is None else tuple(t.to(dev) for t in op)
+        return DeviceHierarchy(
+            [DeviceLevel(lv.n, move(lv.A), lv.dinv.to(dev), move(lv.P),
+                         move(lv.PT)) for lv in self.levels], dev)
+
+
+def _jacobi(lv: DeviceLevel, x: torch.Tensor, b: torch.Tensor,
+            omega: float = 0.7, iters: int = 2) -> torch.Tensor:
+    for _ in range(iters):
+        x = x + omega * lv.dinv * (b - ell.spmv_block_ell(*lv.A, x))
+    return x
+
+
+def _vcycle(h: DeviceHierarchy, b: torch.Tensor, x: torch.Tensor,
+            lvl: int) -> torch.Tensor:
+    """The reference's recursion on padded device vectors."""
+    lv = h.levels[lvl]
+    if lvl == len(h.levels) - 1 or lv.n <= 8:
+        # coarsest: a few strong Jacobi sweeps stand in for a direct solve
+        return _jacobi(lv, x, b, iters=50)
+    x = _jacobi(lv, x, b)
+    r = b - ell.spmv_block_ell(*lv.A, x)
+    coarse = h.levels[lvl + 1]
+    rc = ell.spmv_block_ell(*coarse.PT, r)
+    ec = _vcycle(h, rc, torch.zeros_like(rc), lvl + 1)
+    x = x + ell.spmv_block_ell(*coarse.P, ec)
+    return _jacobi(lv, x, b)
+
+
+def vcycle(levels, b, x=None, lvl: int = 0, device=None) -> torch.Tensor:
+    """One V(2,2) cycle with damped-Jacobi smoothing, on the device.
+
+    ``levels`` is a :class:`DeviceHierarchy`, or the host hierarchy of
+    :func:`build_hierarchy`, which is first moved to ``device`` (``None``
+    means CUDA).  ``b`` and ``x`` (numpy or torch, length ``n`` of level
+    ``lvl``; ``x=None`` starts from zero) go in as float32 zero-padded to
+    whole block rows; returns ``x`` as a float32 tensor of length ``n`` on
+    the hierarchy's device.
+    """
+    if isinstance(levels, DeviceHierarchy):
+        if device is not None and \
+                torch.device(device).type != levels.device.type:
+            raise ValueError(f"hierarchy lies on {levels.device}, not on "
+                             f"{device}")
+        h = levels
+    else:
+        h = DeviceHierarchy.build(levels, device=device)
+    lv = h.levels[lvl]
+
+    def padded(v):
+        v = torch.as_tensor(v).to(device=h.device, dtype=torch.float32)
+        if v.shape != (lv.n,):
+            raise ValueError(f"level {lvl} vectors have {lv.n} entries, got "
+                             f"shape {tuple(v.shape)}")
+        out = torch.zeros(lv.dinv.numel(), dtype=torch.float32,
+                          device=h.device)
+        out[:lv.n] = v
+        return out
+
+    bp = padded(b)
+    xp = torch.zeros_like(bp) if x is None else padded(x)
+    return _vcycle(h, bp, xp, lvl)[:lv.n]

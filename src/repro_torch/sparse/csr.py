@@ -1,11 +1,12 @@
 """Compressed-sparse-row matrices in pure numpy.
 
-Implements the operations the AMG hierarchy needs: transpose, diagonal,
-pruning and a vectorized Gustavson SpGEMM (row-chunked expand/sort/reduce,
-no Python inner loops).
+Implements the operations the paper's applications need: SpMV, transpose,
+and a vectorized Gustavson SpGEMM (row-chunked expand/sort/reduce, no Python
+inner loops).
 
-Port note: host-side construction; the sparse substrate stays numpy and only
-its communication patterns reach the device.
+Port note: host-side construction and a float64 host SpMV; the device SpMV
+is K3 (:mod:`repro_torch.kernels.spmv_ell`) on the block-ELL form that
+:class:`repro_torch.sparse.amg.DeviceHierarchy` moves to the card.
 """
 from __future__ import annotations
 
@@ -34,8 +35,16 @@ class CSR:
     def n_cols(self) -> int:
         return self.shape[1]
 
+    def row(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        s, e = self.indptr[i], self.indptr[i + 1]
+        return self.indices[s:e], self.data[s:e]
+
     def row_lengths(self) -> np.ndarray:
         return np.diff(self.indptr)
+
+    def copy(self) -> "CSR":
+        return CSR(self.indptr.copy(), self.indices.copy(), self.data.copy(),
+                   self.shape)
 
     @classmethod
     def from_coo(cls, rows, cols, vals, shape) -> "CSR":
@@ -55,7 +64,21 @@ class CSR:
         np.cumsum(indptr, out=indptr)
         return cls(indptr, c, summed, shape)
 
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape)
+        rows = np.repeat(np.arange(self.n_rows), self.row_lengths())
+        out[rows, self.indices] = self.data
+        return out
+
     # --------------------------------------------------------------- ops ----
+    def spmv(self, x: np.ndarray) -> np.ndarray:
+        """y = A @ x on the host in float64 (the device path is K3)."""
+        prod = self.data * x[self.indices]
+        out = np.zeros(self.n_rows)
+        rows = np.repeat(np.arange(self.n_rows), self.row_lengths())
+        np.add.at(out, rows, prod)
+        return out
+
     def transpose(self) -> "CSR":
         rows = np.repeat(np.arange(self.n_rows), self.row_lengths())
         return CSR.from_coo(self.indices, rows, self.data,
@@ -67,6 +90,10 @@ class CSR:
         on_diag = rows == self.indices
         d[rows[on_diag]] = self.data[on_diag]
         return d
+
+    def scale_rows(self, s: np.ndarray) -> "CSR":
+        rows = np.repeat(np.arange(self.n_rows), self.row_lengths())
+        return CSR(self.indptr, self.indices, self.data * s[rows], self.shape)
 
     def matmul(self, B: "CSR", chunk_rows: int = 4096) -> "CSR":
         """C = A @ B — vectorized Gustavson (expand, sort, reduce) by chunks."""
@@ -117,6 +144,11 @@ class CSR:
         np.cumsum(indptr, out=indptr)
         return CSR(indptr, cols, vals, (n, m))
 
+    def __matmul__(self, other):
+        if isinstance(other, CSR):
+            return self.matmul(other)
+        return self.spmv(np.asarray(other))
+
     def prune(self, tol: float = 0.0) -> "CSR":
         """Drop entries with |a_ij| <= tol."""
         keep = np.abs(self.data) > tol
@@ -126,3 +158,15 @@ class CSR:
         np.cumsum(indptr, out=indptr)
         return CSR(indptr, self.indices[keep], self.data[keep], self.shape)
 
+
+
+def eye(n: int) -> CSR:
+    return CSR(np.arange(n + 1, dtype=np.int64),
+               np.arange(n, dtype=np.int64), np.ones(n), (n, n))
+
+
+def diag(d: np.ndarray) -> CSR:
+    n = len(d)
+    return CSR(np.arange(n + 1, dtype=np.int64),
+               np.arange(n, dtype=np.int64), np.asarray(d, dtype=np.float64),
+               (n, n))

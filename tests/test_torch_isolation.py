@@ -19,7 +19,10 @@ from repro_torch.comm.phase import CommPhase  # noqa: E402
 from repro_torch.comm.primitives import grouped_queue_steps  # noqa: E402
 from repro_torch.comm.stack import PhaseStack  # noqa: E402
 from repro_torch.comm.strategies import best_strategy_many  # noqa: E402
+from repro_torch.kernels import spmv_ell as ell  # noqa: E402
 from repro_torch.net.machine import blue_waters_machine  # noqa: E402
+from repro_torch.sparse import (DeviceHierarchy, build_hierarchy,  # noqa: E402
+                                poisson_3d, vcycle)
 from repro_torch.sparse.partition import CommPattern  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -43,7 +46,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr + res.stdout
-    assert int(res.stdout.split()[-1]) >= 15     # every module was imported
+    # every module was imported, the V-cycle's and K3's among them
+    assert int(res.stdout.split()[-1]) >= 23
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
@@ -65,3 +69,26 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert grouped_queue_steps(np.array([1, 1]), 2,
                                arrival_order={1: np.array([1, 0])},
                                device="cpu").tolist() == [0, 3]
+
+
+def test_vcycle_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    levels = build_hierarchy(poisson_3d(4))
+    b = np.ones(levels[0].A.n_rows)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vcycle(levels, b)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceHierarchy.build(levels)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ell.csr_to_block_ell(levels[0].A)
+    h = DeviceHierarchy.build(levels, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        h.to(None)
+    # only a tensor on the CPU takes the plain version
+    blocks, cols = h.levels[0].A
+    x = torch.ones(blocks.shape[0] * blocks.shape[2])
+    with pytest.raises(ValueError, match="unsupported device"):
+        ell.spmv_block_ell(blocks.to("meta"), cols.to("meta"), x.to("meta"))
+    # asked for explicitly, the host runs the plain versions
+    assert vcycle(levels, b, device="cpu").shape == b.shape
+    assert vcycle(h, b).shape == b.shape
