@@ -4,10 +4,12 @@
 
 Phases, in order (any failure raises and the script exits non-zero):
 
-1. build the three CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, started together) and print the card;
-2. hold K1 (segment reduce), K2 (queue walk) and K3 (block-ELL SpMV) to
-   their plain PyTorch versions on the card, on ragged shapes;
+1. build the five CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, started together), print their register and spill
+   lines and the card;
+2. hold K1 (segment reduce), K2 (queue walk), K3 (block-ELL SpMV), K4
+   (flash attention) and K5 (SSD intra-chunk step) to their plain PyTorch
+   versions on the card, on ragged shapes;
 3. the small slice: ``best_strategy_many`` over the AMG hierarchy of
    ``elasticity_like_3d(16)`` on ``blue_waters_machine((4, 4, 2))``, on
    cuda and on cpu — identical winners, totals allclose; then one V-cycle
@@ -23,12 +25,25 @@ Phases, in order (any failure raises and the script exits non-zero):
    (every SpMV is one K3 launch: 85 on the 6-level hierarchy) and its
    inputs captured, held to the same cycle on cpu, then 10 cycles with the
    relative residual computed on the host in float64;
-6. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs,
+6. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
+   width cut to 2 layers, float32 weights, one 256-token prompt, ``prefill``
+   then 8 greedy ``decode_step`` calls on cuda and on cpu — logits within
+   1e-4 relative L2, the same tokens;
+7. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
+   random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
+   tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
+   and K5's counts set to 0 just before (32 launches each, one a layer, and
+   none during decode) and every K4 and K5 input captured, then 32 greedy
+   ``make_serve_step`` decode steps; prefill and decode times, peak device
+   memory and the device busy share of a profiled prefill; then
+   ``ServeEngine`` at full width (4 slots, 6 seeded requests of 2-7 prompt
+   tokens, 8 new tokens each);
+8. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs,
    worst error against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
    yardstick, each summed over every call the full-width run made, beside
    the least time the card could take for the same calls;
-7. the card's name and power limit as ``nvidia-smi`` reports them, then,
+9. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -38,6 +53,7 @@ port's sources are not beside the script.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -61,6 +77,10 @@ KERNEL_ROWS = {
                    "src/repro/kernels/comm_stack.py:647"),
     "spmv_block_ell": ("src/repro_torch/kernels/csrc/spmv_ell.cu",
                        "src/repro/kernels/spmv_ell.py:27"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:26"),
+    "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd.cu",
+                        "src/repro/kernels/ssd.py:25"),
 }
 # K3 against its plain version: both sum the same float32 products of a row,
 # in another order (no atomics, so the card's result does not change from
@@ -72,6 +92,23 @@ BF16_ULP = 2.0 ** -8
 # float32; relative L2 gap allowed, the same bound the CPU tests hold the
 # float32 cycle to against the float64 reference (measured there: ~1.5e-7).
 VCYCLE_RTOL = 1e-5
+# peak rates of one H100 SXM (data sheet, dense): bf16 on the tensor cores,
+# float32 outside them (float32 inputs keep float32 products: TF32 is off)
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+# K4 and K5 against their plain versions: the same float32 products summed
+# in another order, held to the reference's own kernel-test bounds
+# (tests/test_kernels.py: flash 2e-5, SSD 2e-4); a bfloat16 output may in
+# addition round one ulp apart, at most 2^-7 of its magnitude.
+K4_TOL = 2e-5
+K5_TOL = 2e-4
+BF16_REL_ULP = 2.0 ** -7
+# the model on cuda against cpu, float32 weights: relative L2 of every
+# logits row (prefill and each decode step)
+MODEL_RTOL = 1e-4
+HYMBA = {"arch": "hymba-1.5b", "batch": 4, "prompt": 2048, "max_seq": 2080,
+         "decode": 32, "small_prompt": 256, "small_decode": 8,
+         "engine": {"slots": 4, "requests": 6, "max_new": 8, "max_seq": 64}}
 
 
 def log(*a):
@@ -699,6 +736,396 @@ def k3_row(launches, captured, labels, host, device_ms) -> dict:
                 slowest_call=dict(op=labels[slow], **figs[slow]))
 
 
+# -- phase 2 (continued): K4 and K5 parity --------------------------------------
+
+def k4_err(fa, q, k, v, causal) -> float:
+    """K4 against its plain version on one input; returns the worst abs
+    error, or raises past K4_TOL (plus one bf16 ulp for bf16 outputs)."""
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal)
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"flash_attention gave {got.dtype} "
+                             f"{tuple(got.shape)}, expected {want.dtype} "
+                             f"{tuple(want.shape)}")
+    got, want = got.float(), want.float()
+    tol = K4_TOL + K4_TOL * want.abs()
+    if q.dtype == torch.bfloat16:
+        tol = tol + BF16_REL_ULP * want.abs()
+    err = (got - want).abs()
+    if bool((err > tol).any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention off by up to "
+                             f"{float(err.max())} (q {tuple(q.shape)}, k "
+                             f"{tuple(k.shape)}, {q.dtype}, causal {causal})")
+    return float(err.max())
+
+
+def k5_err(ssd, dtx, Bm, Cm, cumA) -> float:
+    """K5 against its plain version on one input (y and S_c); returns the
+    worst abs error, or raises past K5_TOL."""
+    got = ssd.ssd_intra_chunk(dtx, Bm, Cm, cumA)
+    want = ssd.ssd_intra_chunk_plain(dtx, Bm, Cm, cumA)
+    worst = 0.0
+    for g, w, what in zip(got, want, ("y", "S_c")):
+        if g.shape != w.shape:
+            raise AssertionError(f"ssd_intra_chunk {what} has shape "
+                                 f"{tuple(g.shape)}, expected "
+                                 f"{tuple(w.shape)}")
+        err = (g - w).abs()
+        if bool((err > K5_TOL + K5_TOL * w.abs()).any()) \
+                or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ssd_intra_chunk {what} off by up to "
+                                 f"{float(err.max())} (dtx "
+                                 f"{tuple(dtx.shape)}, B {tuple(Bm.shape)})")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def k4_k5_parity(dev) -> None:
+    """K4 on D 16/64/128, rep 1 and 5, causal and full, S 200 (not a
+    multiple of the 64-row tile) and 1, float32 and bfloat16; K5 on q
+    16/64/128, n 8/16/128, p 16/64 with B and C expanded over 5 heads
+    (stride 0) and dtx and cumA transposed views."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst, n = {torch.float32: 0.0, torch.bfloat16: 0.0}, 0
+    for D in (16, 64, 128):
+        for rep in (1, 5):
+            for causal in (True, False):
+                for S in (200, 1):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        q, k, v = (torch.randn(2, S, h, D, generator=gen,
+                                               device=dev).to(dtype)
+                                   for h in (2 * rep, 2, 2))
+                        worst[dtype] = max(worst[dtype],
+                                           k4_err(fa, q, k, v, causal))
+                        n += 1
+    torch.cuda.synchronize()
+    log(f"K4 parity: {n} cases (D 16/64/128, rep 1/5, causal and full, S "
+        f"200 and 1, float32 and bfloat16), max abs err float32 "
+        f"{worst[torch.float32]:.3g}, bfloat16 {worst[torch.bfloat16]:.3g}")
+    worst5, n = 0.0, 0
+    G1, h = 6, 5
+    for q in (16, 64, 128):
+        for nn in (8, 16, 128):
+            for p in (16, 64):
+                dtx = torch.randn(G1, q, h, p, generator=gen, device=dev)
+                Bm, Cm = (torch.randn(G1, 1, q, nn, generator=gen,
+                                      device=dev).expand(G1, h, q, nn)
+                          for _ in range(2))
+                a = -0.1 * torch.rand(G1, q, h, generator=gen, device=dev)
+                cumA = a.cumsum(1).permute(0, 2, 1)[..., None]
+                worst5 = max(worst5, k5_err(ssd, dtx.permute(0, 2, 1, 3), Bm,
+                                            Cm, cumA))
+                n += 1
+    torch.cuda.synchronize()
+    log(f"K5 parity: {n} cases (q 16/64/128, n 8/16/128, p 16/64; B and C "
+        f"expanded over {h} heads, dtx and cumA transposed views), max abs "
+        f"err {worst5:.3g}")
+
+
+# -- phases 6 and 7: the model ---------------------------------------------------
+
+def greedy(model, cfg, tokens, steps: int, device, max_seq: int):
+    """``prefill`` then ``steps`` greedy ``decode_step`` calls; returns
+    (every logits row on the host, the greedy tokens)."""
+    from repro_torch.nn import decode_step, prefill
+
+    S = tokens.shape[1]
+    logits, cache = prefill(model, cfg, tokens, max_seq=max_seq,
+                            device=device)
+    rows, toks = [logits.double().cpu()], []
+    for i in range(steps):
+        tok = logits.argmax(-1)
+        toks.append(tok.cpu())
+        logits, cache = decode_step(model, cfg, cache, tok, S + i,
+                                    device=device)
+        rows.append(logits.double().cpu())
+    toks.append(logits.argmax(-1).cpu())
+    return rows, torch.stack(toks, 1)
+
+
+def small_model() -> None:
+    """hymba-1.5b's smoke config and its full width cut to 2 layers, float32
+    weights, on cuda and on cpu: logits within MODEL_RTOL relative L2 of
+    each other at every step, the same greedy tokens."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.nn import init_params, params_from_numpy, params_to_numpy
+
+    S, steps = HYMBA["small_prompt"], HYMBA["small_decode"]
+    for label, cfg in (("smoke config", get_smoke_config(HYMBA["arch"])),
+                       ("full width cut to 2 layers", dataclasses.replace(
+                           get_config(HYMBA["arch"]), n_layers=2))):
+        gpu = init_params(cfg, seed=0).float()
+        cpu = params_from_numpy(params_to_numpy(gpu), cfg, device="cpu",
+                                dtype=torch.float32)
+        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, S))
+        (rows_g, toks_g), t_gpu = sync_time(lambda: greedy(
+            gpu, cfg, torch.from_numpy(tokens).cuda(), steps, None,
+            S + steps))
+        t = time.perf_counter()
+        rows_c, toks_c = greedy(cpu, cfg, torch.from_numpy(tokens), steps,
+                                "cpu", S + steps)
+        t_cpu = time.perf_counter() - t
+        rels = [rel_l2(g, c) for g, c in zip(rows_g, rows_c)]
+        if not max(rels) <= MODEL_RTOL or not all(
+                bool(torch.isfinite(r).all()) for r in rows_g):
+            raise AssertionError(f"small model ({label}): cuda vs cpu logits "
+                                 f"relative L2 {rels}")
+        if not torch.equal(toks_g, toks_c):
+            raise AssertionError(f"small model ({label}): greedy tokens "
+                                 f"differ: cuda {toks_g.tolist()}, cpu "
+                                 f"{toks_c.tolist()}")
+        log(f"small model, hymba-1.5b {label} ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}), float32, 1 x {S}-token prompt + "
+            f"{steps} greedy steps: cuda {t_gpu:.3f} s, cpu {t_cpu:.3f} s; "
+            f"logits relative L2 worst {max(rels):.3g} (limit {MODEL_RTOL}),"
+            f" tokens equal {toks_g[0].tolist()}")
+
+
+def full_model():
+    """hymba-1.5b at full width in bf16: prefill of 4 x 2048 tokens with K4
+    and K5 counted and their inputs captured, 32 greedy decode steps, a
+    profiled prefill and the serving engine.  Returns (launches, captured
+    calls, device ms of K4 and K5 over the profiled prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.nn import init_params
+
+    cfg = get_config(HYMBA["arch"])
+    B, S, steps = HYMBA["batch"], HYMBA["prompt"], HYMBA["decode"]
+    model, t_init = sync_time(lambda: init_params(cfg, seed=0))
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"full model: {cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+        f"{cfg.head_dim}, {cfg.ssm_heads} SSM heads (state {cfg.ssm_state}, "
+        f"chunk {cfg.ssm_chunk}), vocab {cfg.vocab_size}; "
+        f"{sum(p.numel() for p in model.parameters())} parameters, {n_bytes}"
+        f" bytes on the card (bf16 weights, float32 norms and SSM scalars), "
+        f"init_params(seed=0) {t_init:.2f} s")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    batch = {"tokens": tokens}
+    prefill_step = make_prefill_step(cfg, max_seq=HYMBA["max_seq"])
+    serve_step = make_serve_step(cfg)
+
+    t_warm = sync_time(lambda: prefill_step(model, batch))[1]
+    torch.cuda.reset_peak_memory_stats()
+    t_pre = sync_time(lambda: prefill_step(model, batch))[1]
+    peak = torch.cuda.max_memory_allocated()
+
+    captured = {"flash_attention": [], "ssd_intra_chunk": []}
+    real = {name: getattr(ops, name) for name in captured}
+
+    def spy(name):
+        def call(*args, **kw):
+            captured[name].append((args, kw))
+            return real[name](*args, **kw)
+        return call
+
+    for name in real:
+        setattr(ops, name, spy(name))
+    try:
+        fa.reset_launches()
+        ssd.reset_launches()
+        (logits, cache), t_counted = sync_time(
+            lambda: prefill_step(model, batch))
+        launches = {**fa.LAUNCHES, **ssd.LAUNCHES}
+    finally:
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    log(f"full model prefill launches: {launches} (expected "
+        f"{cfg.n_layers} each, one a layer)")
+    for name, n in launches.items():
+        if n != cfg.n_layers:
+            raise AssertionError(f"{name} launched {n} times in the "
+                                 f"full-width prefill, expected "
+                                 f"{cfg.n_layers}")
+    if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(
+            torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             f"finite")
+    for name, t in cache["layers"].items():
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"prefill cache {name} is not finite")
+    log(f"full model prefill {B} x {S} tokens: {t_pre:.4f} s wall "
+        f"({B * S / t_pre:.0f} tokens/s; warm-up {t_warm:.3f} s, counted "
+        f"run {t_counted:.3f} s); max_memory_allocated {peak} bytes; cache "
+        + ", ".join(f"{k} {tuple(t.shape)} {str(t.dtype)[6:]}"
+                    for k, t in cache["layers"].items()))
+
+    tok, walls, out = logits.argmax(-1), [], []
+    for i in range(steps):
+        (logits, cache), w = sync_time(
+            lambda: serve_step(model, cache, tok, S + i))
+        walls.append(w)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    if {**fa.LAUNCHES, **ssd.LAUNCHES} != launches:
+        raise AssertionError(f"decode launched K4 or K5: {fa.LAUNCHES}, "
+                             f"{ssd.LAUNCHES}")
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError("decode logits are not finite")
+    step_ms = 1e3 * sum(walls[1:]) / (steps - 1)
+    log(f"full model decode: {steps} greedy steps from position {S}, "
+        f"{step_ms:.3f} ms a step after the first ({walls[0] * 1e3:.3f} ms), "
+        f"{B / step_ms * 1e3:.1f} tokens/s; no K4 or K5 launch; row 0's "
+        f"tokens {torch.stack(out, 1)[0].tolist()}")
+
+    rows = device_share(lambda: prefill_step(model, batch))
+    # None where the profiler saw no device time
+    dev_ms = {name: sum(us for us, _, key in rows if tag in key) / 1e3
+              if rows else None
+              for name, tag in (("flash_attention", "flash_fwd"),
+                                ("ssd_intra_chunk", "ssd_intra"))}
+    log(f"full model prefill: kernel device time under the profiler "
+        f"{dev_ms} ms")
+    del cache
+    serve_engine(cfg, model, fa, ssd)
+    return launches, captured, dev_ms
+
+
+def serve_engine(cfg, model, fa, ssd) -> None:
+    """``ServeEngine`` at full width with ``launch/serve.py``'s defaults:
+    every request finishes with its 8 tokens, and no kernel runs (the
+    engine ingests prompts through decode, as the reference's does)."""
+    from repro_torch.serve import Request, ServeEngine
+
+    e = HYMBA["engine"]
+    eng = ServeEngine(cfg, model, batch_slots=e["slots"],
+                      max_seq=e["max_seq"])
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=uid, prompt=rng.integers(
+        1, cfg.vocab_size, int(rng.integers(2, 8))).tolist(),
+        max_new_tokens=e["max_new"]) for uid in range(e["requests"])]
+    for r in reqs:
+        eng.submit(r)
+    before = {**fa.LAUNCHES, **ssd.LAUNCHES}
+    done, wall = sync_time(lambda: eng.run_until_done(max_ticks=2000))
+    if len(done) != e["requests"] or any(
+            len(r.output) != e["max_new"] for r in reqs):
+        raise AssertionError(f"ServeEngine finished {len(done)} of "
+                             f"{e['requests']} requests: "
+                             f"{[(r.uid, len(r.output)) for r in reqs]}")
+    if {**fa.LAUNCHES, **ssd.LAUNCHES} != before:
+        raise AssertionError("ServeEngine launched K4 or K5")
+    new = sum(len(r.output) for r in reqs)
+    log(f"ServeEngine at full width: {e['slots']} slots, {len(reqs)} "
+        f"requests of {[len(r.prompt) for r in reqs]} prompt tokens, "
+        f"{new} new tokens in {wall:.3f} s ({new / wall:.1f} tokens/s)")
+    for r in reqs:
+        log(f"  req {r.uid}: prompt {r.prompt} -> {r.output}")
+
+
+# -- phase 8: K4 and K5 figures ---------------------------------------------------
+
+def k4_call_figures(fa, q, k, v, causal) -> dict:
+    """CUDA-event times of one K4 call (the wrapper, the launch alone, the
+    plain version and ``scaled_dot_product_attention`` with
+    ``enable_gqa``, the one-call PyTorch yardstick) beside its bound: the
+    larger of its flops (the causal triangle, 4D a pair) at the peak rate
+    of its dtype and its bytes (q, k, v read once, the output written
+    once) at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    B, S, H, D = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = B * H * pairs * 4 * D
+    moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops = flops / (BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS)
+    t_bytes = moved / HBM_BYTES_PER_S
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    reps = 3
+    return dict(
+        ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal), reps),
+        kernel_ms=cuda_ms(lambda: fa._flash_attention_cuda(q, k, v, causal),
+                          reps),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal),
+                         reps),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), reps),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        flops=flops, bytes=moved)
+
+
+def k5_call_figures(ssd, dtx, Bm, Cm, cumA) -> dict:
+    """CUDA-event times of one K5 call (the wrapper, the launch alone, the
+    plain version; no single PyTorch call computes it) beside its bound:
+    the larger of its bytes (dtx, cumA, y and S_c once a program, B and C
+    once a (batch, chunk), float32) at 3.35 TB/s and its float32 flops
+    (the lower triangle of C B^T, its decay and its product with dtx, then
+    S_c) at the card's float32 rate."""
+    G1, h, q, p = dtx.shape
+    n = Bm.shape[-1]
+    G = G1 * h
+    moved = 4 * (2 * G * q * p + G * q + 2 * G1 * q * n + G * n * p)
+    tri = q * (q + 1) // 2
+    flops = G * (tri * (2 * n + 1 + 2 * p) + q * n + 2 * q * n * p)
+    t_ops, t_bytes = flops / F32_FLOPS, moved / HBM_BYTES_PER_S
+    heads = (G, h, q, n, p)
+    reps = 5
+    return dict(
+        ms=cuda_ms(lambda: ssd.ssd_intra_chunk(dtx, Bm, Cm, cumA), reps),
+        kernel_ms=cuda_ms(lambda: ssd._ssd_intra_chunk_cuda(
+            dtx, Bm, Cm, cumA, *heads), reps),
+        plain_ms=cuda_ms(lambda: ssd.ssd_intra_chunk_plain(dtx, Bm, Cm, cumA),
+                         reps),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        flops=flops, bytes=moved)
+
+
+def model_kernel_rows(launches, captured, dev_ms) -> list:
+    """The K4 and K5 rows over the 32 calls of the full-width prefill: each
+    call held to its plain version, times and bounds summed, and the
+    kernel's device time over a profiled prefill (``dev_ms``)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+
+    rows = []
+    for name, err_of, figs_of in (
+            ("flash_attention",
+             lambda a, kw: k4_err(fa, *a, kw.get("causal", True)),
+             lambda a, kw: k4_call_figures(fa, *a, kw.get("causal", True))),
+            ("ssd_intra_chunk", lambda a, kw: k5_err(ssd, *a),
+             lambda a, kw: k5_call_figures(ssd, *a))):
+        calls = captured[name]
+        errs = [err_of(a, kw) for a, kw in calls]
+        figs = [figs_of(a, kw) for a, kw in calls]
+        keys = [k for k in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                            "bound_ms", "flops", "bytes") if k in figs[0]]
+        total = {k: sum(f[k] for f in figs) for k in keys}
+        shapes = [tuple(t.shape) for t in calls[0][0]]
+        log(f"{name} over the full-width prefill's {len(calls)} calls "
+            f"(inputs {shapes}, {calls[0][0][0].dtype}): wrapper "
+            f"{total['ms']:.4f} ms, launch alone {total['kernel_ms']:.4f} ms "
+            f"({total['flops'] / total['kernel_ms'] / 1e9:.2f} TFLOP/s, "
+            f"{total['bytes'] / total['kernel_ms'] / 1e6:.0f} GB/s), device "
+            f"{dev_ms[name]} ms (profiled prefill), plain "
+            f"{total['plain_ms']:.4f} ms, library "
+            + (f"{total['library_ms']:.4f} ms" if "library_ms" in total
+               else "none")
+            + f", bound {total['bound_ms']:.4f} ms ({figs[0]['bound_by']}: "
+            f"{total['flops']} flops, {total['bytes']} bytes); max abs err "
+            f"{max(errs):.3g}")
+        rows.append(dict(name=name, route="cuda", source=KERNEL_ROWS[name][0],
+                         replaces=KERNEL_ROWS[name][1],
+                         launches=launches[name], max_abs_err=max(errs),
+                         ms=total["ms"], plain_ms=total["plain_ms"],
+                         bound_ms=total["bound_ms"],
+                         bound_by=figs[0]["bound_by"],
+                         library_ms=total.get("library_ms"),
+                         kernel_ms=total["kernel_ms"],
+                         device_ms=dev_ms[name], calls=len(calls),
+                         flops=total["flops"], bytes=total["bytes"],
+                         inputs=[list(s) for s in shapes]))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -723,11 +1150,15 @@ def main() -> int:
 
     kernel_parity(ks, dev)
     k3_parity(dev)
+    k4_k5_parity(dev)
     small_vcycle(small_slice())
     launches, captured, levels = full_slice(ks)
     k3_run = full_vcycle(levels)
+    small_model()
+    model_run = full_model()
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
     rows.append(k3_row(*k3_run))
+    rows.extend(model_kernel_rows(*model_run))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,3 @@
-"""Hand-written CUDA kernels of the port (the PhaseStack passes and the
-block-ELL SpMV), each with its plain PyTorch version."""
+"""Hand-written CUDA kernels of the port (the PhaseStack passes, the
+block-ELL SpMV, flash attention and the SSD intra-chunk step), each with its
+plain PyTorch version."""

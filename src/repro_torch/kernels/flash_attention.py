@@ -1,0 +1,126 @@
+"""K4, flash attention forward, and its plain version.
+
+:func:`flash_attention`
+    Causal or full grouped-query attention, ``q`` ``[B, S, H, D]`` against
+    ``k``/``v`` ``[B, S, KH, D]``.  It checks shapes, dtypes, devices and
+    contiguity from the tensors' metadata alone (no device-to-host read)
+    and raises on anything else.  On CUDA tensors it launches K4
+    (``csrc/flash_attention.cu``: one thread block per (batch, head, tile
+    of 64 query rows), an online softmax over kv tiles staged in shared
+    memory, float32 FMAs) and adds one to :data:`LAUNCHES`; on CPU tensors
+    it is :func:`flash_attention_plain` — there is no fallback.
+:func:`flash_attention_plain`
+    The reference's oracle ``flash_attention_ref``: an einsum in float32,
+    a softmax, an einsum, cast to ``q``'s dtype.
+
+Counterpart of ``repro.kernels.flash_attention``, whose Pallas kernel also
+needs ``S`` to be a multiple of its 128-row blocks; that is a limit of its
+tiling, not of the function, and K4 takes any ``S``.  The kernel is built at
+first use by :mod:`repro_torch.kernels.build`; nothing is compiled at
+import.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import kernel, launch
+
+#: Kernel launches since the count was last reset.
+LAUNCHES = {"flash_attention": 0}
+#: Head dims K4 is compiled for.
+HEAD_DIMS = (16, 32, 64, 128)
+NEG_INF = -1e30
+
+_I = ctypes.c_int
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (_I,) * 7 + (ctypes.c_float,)
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    """Set the launch count to 0."""
+    LAUNCHES["flash_attention"] = 0
+
+
+def _check(q, k, v) -> torch.device:
+    """Raise unless ``(q, k, v)`` is an attention K4 takes; returns their
+    device.  Reads metadata only, so it never waits on the card."""
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{what} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.dim() != 4:
+            raise ValueError(f"{what} must be 4-D, got shape "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{what} must be float32 or bfloat16, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} must be contiguous")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{what} lies on unsupported device {t.device}")
+    if k.shape != v.shape:
+        raise ValueError(f"k and v shapes differ: {tuple(k.shape)} vs "
+                         f"{tuple(v.shape)}")
+    if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} must "
+                         f"share batch, sequence and head dim")
+    if k.shape[2] < 1 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"H={q.shape[2]} must be a multiple of "
+                         f"KH={k.shape[2]}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[3]} not supported; K4 takes "
+                         f"{HEAD_DIMS}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"inputs on different devices: {q.device}, "
+                         f"{k.device} and {v.device}")
+    return q.device
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """Plain version of K4: exact softmax attention in float32."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    qg = q.reshape(B, S, KH, H // KH, D).float()
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k.float()) / (D ** 0.5)
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", w, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Grouped-query attention forward.
+
+    ``q`` ``[B, S, H, D]``, ``k``/``v`` ``[B, S, KH, D]``: contiguous, one
+    dtype (float32 or bfloat16), ``H`` a multiple of ``KH`` (query head
+    ``h`` reads kv head ``h // (H // KH)``), ``D`` in :data:`HEAD_DIMS`, any
+    ``S``.  Scale ``1 / sqrt(D)``; returns ``[B, S, H, D]`` in ``q``'s
+    dtype.  On CUDA tensors this is one launch of K4, float32-allclose to
+    the plain version (the sums run in another order); on CPU tensors it
+    is :func:`flash_attention_plain`.
+    """
+    if _check(q, k, v).type == "cpu":
+        return flash_attention_plain(q, k, v, causal)
+    return _flash_attention_cuda(q, k, v, causal)
+
+
+def _flash_attention_cuda(q, k, v, causal: bool) -> torch.Tensor:
+    """K4's launch on checked CUDA inputs (the output allocated here)."""
+    B, S, H, D = q.shape
+    out = torch.empty_like(q)
+    if out.numel():
+        launch(kernel("flash_attention", "flash_attention_fwd", _ARGTYPES),
+               q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), B, S, H, k.shape[2], D, int(bool(causal)),
+               int(q.dtype == torch.bfloat16), 1.0 / D ** 0.5)
+        LAUNCHES["flash_attention"] += 1
+    return out

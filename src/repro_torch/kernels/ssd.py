@@ -1,0 +1,142 @@
+"""K5, the Mamba2 SSD intra-chunk step, and its plain version.
+
+For each program g (one batch row, chunk and head) of a chunked SSD scan::
+
+    scores[i,j] = (C_i . B_j) * exp(cumA_i - cumA_j)   for i >= j, else 0
+    y[i]        = sum_j scores[i,j] * dtx[j]                  [q, p]
+    S_c         = sum_j exp(cumA_last - cumA_j) B_j dtx_j^T   [n, p]
+
+:func:`ssd_intra_chunk`
+    Checks shapes, dtypes, devices and shared-memory size from the tensors'
+    metadata alone (no device-to-host read) and raises on anything else.
+    On CUDA tensors it launches K5 (``csrc/ssd.cu``: one thread block per
+    program, the ``[q, q]`` score tile in shared memory) and adds one to
+    :data:`LAUNCHES`; on CPU tensors it is :func:`ssd_intra_chunk_plain` —
+    there is no fallback.
+:func:`ssd_intra_chunk_plain`
+    The reference's oracle ``ssd_intra_chunk_ref`` in float32 einsums.
+
+Every input is either ``[G, q, x]`` as in the reference, or ``[G1, h, q, x]``
+with ``G = G1 * h`` (program ``g = g1 * h + head``) and any strides.  The
+second form lets :func:`repro_torch.nn.ssm.ssd_chunked` pass ``B`` and ``C``
+of a (batch, chunk) expanded over its heads with stride 0, and ``dtx`` and
+``cumA`` as transposed views, with no copies.  Counterpart of
+``repro.kernels.ssd``; the kernel is built at first use by
+:mod:`repro_torch.kernels.build`, nothing is compiled at import.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .build import kernel, launch
+
+#: Kernel launches since the count was last reset.
+LAUNCHES = {"ssd_intra_chunk": 0}
+#: Shared memory one thread block may use on Hopper.
+MAX_SMEM = 232448
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P,) * 7 + (_I,) * 5
+
+
+def reset_launches() -> None:
+    """Set the launch count to 0."""
+    LAUNCHES["ssd_intra_chunk"] = 0
+
+
+def smem_bytes(q: int, n: int, p: int) -> int:
+    """Shared memory of one K5 program: C and B (rows padded by one), dtx,
+    the score tile, cumA and the chunk-end decays, all float32."""
+    return 4 * (2 * q * (n + 1) + q * p + q * q + 2 * q)
+
+
+def _as4(t: torch.Tensor) -> torch.Tensor:
+    return t.unsqueeze(1) if t.dim() == 3 else t
+
+
+def _check(dtx, Bm, Cm, cumA):
+    """Raise unless the inputs are an intra-chunk step K5 takes; returns
+    ``(device, G, heads, q, n, p)``.  Metadata only: it never waits on the
+    card."""
+    named = (("dtx", dtx), ("Bm", Bm), ("Cm", Cm), ("cumA", cumA))
+    for what, t in named:
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{what} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.dim() not in (3, 4):
+            raise ValueError(f"{what} must be [G, q, x] or [G1, h, q, x], "
+                             f"got shape {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} must be float32, got {t.dtype}")
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{what} lies on unsupported device {t.device}")
+    d4, b4, c4, a4 = (_as4(t) for _, t in named)
+    G1, heads, q, p = d4.shape
+    n = b4.shape[-1]
+    if b4.shape != c4.shape or b4.shape[:3] != (G1, heads, q):
+        raise ValueError(f"Bm {tuple(Bm.shape)} and Cm {tuple(Cm.shape)} "
+                         f"must be [*, q, n] matching dtx {tuple(dtx.shape)}")
+    if a4.shape != (G1, heads, q, 1):
+        raise ValueError(f"cumA must be [*, q, 1] matching dtx, got "
+                         f"{tuple(cumA.shape)}")
+    if min(q, n, p) < 1:
+        raise ValueError(f"q, n and p must be positive, got {q}, {n}, {p}")
+    if smem_bytes(q, n, p) > MAX_SMEM:
+        raise ValueError(f"q={q}, n={n}, p={p} needs {smem_bytes(q, n, p)} "
+                         f"bytes of shared memory a program; K5 has "
+                         f"{MAX_SMEM}")
+    dev = dtx.device
+    if any(t.device != dev for _, t in named):
+        raise ValueError("inputs on different devices: "
+                         + ", ".join(str(t.device) for _, t in named))
+    return dev, G1 * heads, heads, q, n, p
+
+
+def ssd_intra_chunk_plain(dtx, Bm, Cm, cumA):
+    """Plain version of K5 on ``[G, q, x]`` or ``[G1, h, q, x]`` inputs;
+    returns ``(y [G, q, p], S_c [G, n, p])`` in float32."""
+    d4, b4, c4, a4 = (_as4(t) for t in (dtx, Bm, Cm, cumA))
+    G1, heads, q, p = d4.shape
+    cum = a4[..., 0]                                        # [G1, h, q]
+    cb = torch.einsum("ghin,ghjn->ghij", c4, b4)
+    ln = cum[..., :, None] - cum[..., None, :]
+    mask = torch.ones(q, q, dtype=torch.bool, device=dtx.device).tril()
+    scores = cb * torch.exp(ln.masked_fill(~mask, -1e30))
+    y = torch.einsum("ghij,ghjp->ghip", scores, d4)
+    seg = torch.exp(cum[..., -1:] - cum)                     # [G1, h, q]
+    s = torch.einsum("ghjn,ghj,ghjp->ghnp", b4, seg, d4)
+    n = b4.shape[-1]
+    return y.reshape(G1 * heads, q, p), s.reshape(G1 * heads, n, p)
+
+
+def ssd_intra_chunk(dtx, Bm, Cm, cumA):
+    """Batched intra-chunk SSD.
+
+    ``dtx`` ``[G, q, p]`` (``dt_j * x_j``), ``Bm``/``Cm`` ``[G, q, n]``,
+    ``cumA`` ``[G, q, 1]`` (inclusive cumulative log-decay), all float32;
+    or each ``[G1, h, q, x]`` with any strides.  Returns ``(y_intra [G, q,
+    p], S_c [G, n, p])``, contiguous float32.  On CUDA tensors this is one
+    launch of K5 (``q, n, p`` within :data:`MAX_SMEM` bytes of shared
+    memory a program, :func:`smem_bytes`), float32-allclose to the plain
+    version; on CPU tensors it is :func:`ssd_intra_chunk_plain`.
+    """
+    dev, G, heads, q, n, p = _check(dtx, Bm, Cm, cumA)
+    if dev.type == "cpu":
+        return ssd_intra_chunk_plain(dtx, Bm, Cm, cumA)
+    return _ssd_intra_chunk_cuda(dtx, Bm, Cm, cumA, G, heads, q, n, p)
+
+
+def _ssd_intra_chunk_cuda(dtx, Bm, Cm, cumA, G, heads, q, n, p):
+    """K5's launch on checked CUDA inputs (the outputs allocated here)."""
+    y = torch.empty(G, q, p, dtype=torch.float32, device=dtx.device)
+    s = torch.empty(G, n, p, dtype=torch.float32, device=dtx.device)
+    if G:
+        strides = (ctypes.c_longlong * 16)(
+            *(st for t in (dtx, Bm, Cm, cumA) for st in _as4(t).stride()))
+        launch(kernel("ssd", "ssd_intra_chunk", _ARGTYPES), dtx.device,
+               dtx.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), cumA.data_ptr(),
+               y.data_ptr(), s.data_ptr(), strides, G, heads, q, n, p)
+        LAUNCHES["ssd_intra_chunk"] += 1
+    return y, s

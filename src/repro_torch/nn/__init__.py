@@ -1,0 +1,12 @@
+"""The language model of the port: hybrid, SSM and dense-attention decoders
+for prefill and decode (counterpart of ``repro.nn``)."""
+from .config import ArchConfig
+from .model import (Model, cache_shapes, decode_step, forward_logits,
+                    init_cache, init_params, param_shapes, params_from_numpy,
+                    params_to_numpy, prefill)
+
+__all__ = [
+    "ArchConfig", "Model", "param_shapes", "init_params",
+    "params_from_numpy", "params_to_numpy", "forward_logits", "decode_step",
+    "prefill", "init_cache", "cache_shapes",
+]

@@ -1,0 +1,132 @@
+"""Architecture configuration, a copy of ``repro.nn.config.ArchConfig``:
+dense / MoE / SSM / hybrid decoder-only LMs, an encoder-decoder (whisper)
+and modality-stub backbones (VLM, audio).  The port runs the attn, ssm and
+hybrid block kinds so far; the other fields are kept so that a config
+compares field for field with the reference's."""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                 # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int                # query heads (0 = attention-free)
+    n_kv_heads: int
+    d_ff: int                   # dense-MLP hidden size (0 = none)
+    vocab_size: int
+
+    d_head: int = 0             # default: d_model // n_heads
+    mlp_type: str = "swiglu"    # swiglu | gelu
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm
+    rope_theta: float = 1e4
+    qk_norm: bool = False
+    m_rope: bool = False        # qwen2-vl multimodal rope
+    tie_embeddings: bool = False
+
+    # MoE
+    n_experts: int = 0
+    n_experts_active: int = 0   # top-k
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0           # per-expert hidden size
+    first_dense_layers: int = 0  # deepseek: leading dense layers
+    capacity_factor: float = 1.25
+
+    # SSM (mamba2 SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_kernel: int = 4
+    ssm_chunk: int = 128
+
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    cross_attention: bool = False
+
+    # modality frontend stub: input_specs() provides precomputed embeddings
+    frontend: str | None = None   # patch_embed | audio_conv | None
+
+    # serving: store the decode KV cache as int8 with per-(position, head)
+    # scales (halves cache HBM traffic vs bf16; decode is memory-bound)
+    kv_quant: bool = False
+
+    norm_eps: float = 1e-6
+
+    # ---------------------------------------------------------- derived ----
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def has_attention(self) -> bool:
+        return self.n_heads > 0
+
+    @property
+    def has_ssm(self) -> bool:
+        return self.ssm_state > 0
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence scaling: SSM and hybrid-with-SSM families."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def block_kind(self) -> str:
+        if self.family == "ssm":
+            return "ssm"
+        if self.family == "hybrid":
+            return "hybrid"
+        if self.is_moe:
+            return "moe"
+        return "attn"
+
+    def n_params(self) -> int:
+        """Approximate parameter count (used for 6ND model-FLOP estimates)."""
+        d, L = self.d_model, self.n_layers
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        if self.has_attention and self.block_kind != "ssm":
+            hd = self.head_dim
+            per_layer += d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+                + self.n_heads * hd * d
+        if self.has_ssm:
+            di = self.ssm_d_inner
+            n = self.ssm_state
+            per_layer += d * (2 * di + 2 * n + self.ssm_heads) + di * d
+        if self.is_moe:
+            per_layer += d * self.n_experts  # router
+            per_layer += self.n_experts * 3 * d * self.moe_d_ff
+            per_layer += self.n_shared_experts * 3 * d * self.moe_d_ff
+        elif self.d_ff:
+            mult = 3 if self.mlp_type == "swiglu" else 2
+            per_layer += mult * d * self.d_ff
+        total = emb + L * per_layer
+        if self.encoder_layers:
+            enc = self.encoder_layers * (4 * d * d + 2 * d * self.d_ff)
+            cross = self.n_layers * 4 * d * d
+            total += enc + cross
+        return int(total)
+
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: only top-k + shared experts)."""
+        if not self.is_moe:
+            return self.n_params()
+        d, L = self.d_model, self.n_layers
+        inactive = (self.n_experts - self.n_experts_active) * 3 * d * self.moe_d_ff
+        return int(self.n_params() - L * inactive)

@@ -15,12 +15,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.comm.phase import CommPhase  # noqa: E402
 from repro_torch.comm.primitives import grouped_queue_steps  # noqa: E402
 from repro_torch.comm.stack import PhaseStack  # noqa: E402
 from repro_torch.comm.strategies import best_strategy_many  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import spmv_ell as ell  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
+from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
+                                      make_serve_step)
 from repro_torch.net.machine import blue_waters_machine  # noqa: E402
+from repro_torch.nn import (decode_step, forward_logits,  # noqa: E402
+                            init_cache, init_params, params_from_numpy,
+                            params_to_numpy, prefill)
+from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.sparse import (DeviceHierarchy, build_hierarchy,  # noqa: E402
                                 poisson_3d, vcycle)
 from repro_torch.sparse.partition import CommPattern  # noqa: E402
@@ -46,8 +55,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr + res.stdout
-    # every module was imported, the V-cycle's and K3's among them
-    assert int(res.stdout.split()[-1]) >= 23
+    # every module was imported: the V-cycle's and K3's, and the model
+    # slice's (nn, configs, launch, serve, K4, K5) among them
+    assert int(res.stdout.split()[-1]) >= 40
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
@@ -92,3 +102,62 @@ def test_vcycle_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     # asked for explicitly, the host runs the plain versions
     assert vcycle(levels, b, device="cpu").shape == b.shape
     assert vcycle(h, b).shape == b.shape
+
+
+def test_model_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
+    cfg = configs.get_smoke_config("hymba-1.5b")
+    model = init_params(cfg, device="cpu")
+    tree = params_to_numpy(model)
+    tokens = np.ones((1, 16), dtype=np.int64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: init_params(cfg),
+                 lambda: params_from_numpy(tree, cfg),
+                 lambda: init_cache(cfg, 1, 16),
+                 lambda: forward_logits(model, cfg, tokens),
+                 lambda: prefill(model, cfg, tokens),
+                 lambda: decode_step(model, cfg, init_cache(cfg, 1, 16,
+                                                            device="cpu"),
+                                     tokens[:, 0], 0),
+                 lambda: make_prefill_step(cfg)(model, {"tokens": tokens}),
+                 lambda: make_serve_step(cfg)(model, None, tokens[:, 0], 0),
+                 lambda: ServeEngine(cfg, model)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # asked for explicitly, the host runs the plain versions
+    logits, cache = prefill(model, cfg, tokens, device="cpu")
+    assert logits.shape == (1, cfg.vocab_size)
+    assert ServeEngine(cfg, model, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("which", ["flash_attention", "ssd_intra_chunk"])
+def test_kernel_wrappers_never_run_the_plain_version_off_the_cpu(
+        monkeypatch, which):
+    # a wrapper takes its plain version only because its tensors lie on the
+    # CPU: told they lie on the card, it goes to the kernel, and a kernel
+    # that cannot be built raises instead of falling back
+    mod = fa if which == "flash_attention" else ssd
+    real_check = mod._check
+
+    def on_card(*args):
+        out = real_check(*args)
+        dev = torch.device("cuda")
+        return (dev,) + out[1:] if isinstance(out, tuple) else dev
+
+    def no_kernel(*_):
+        raise RuntimeError("nvcc not found")
+
+    def plain(*_, **__):
+        raise AssertionError("the plain version ran")
+
+    monkeypatch.setattr(mod, "_check", on_card)
+    monkeypatch.setattr(mod, "kernel", no_kernel)
+    monkeypatch.setattr(mod, f"{which}_plain", plain)
+    if which == "flash_attention":
+        args = [torch.zeros(1, 8, 2, 16)] * 3
+    else:
+        args = [torch.zeros(2, 8, 4), torch.zeros(2, 8, 3),
+                torch.zeros(2, 8, 3), torch.zeros(2, 8, 1)]
+    before = dict(mod.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        getattr(mod, which)(*args)
+    assert mod.LAUNCHES == before

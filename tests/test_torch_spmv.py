@@ -88,7 +88,11 @@ def test_csr_to_block_ell_is_bit_equal_to_reference(name, bs):
 
 
 def test_ops_exports_the_spmv_entry_points_only():
-    assert ops.__all__ == ["spmv_block_ell", "csr_to_block_ell"]
+    # since K4 and K5 were ported, the SpMV entries stand beside theirs:
+    # the same public entry points as the reference's kernels.ops
+    from repro.kernels import ops as ref_ops
+    assert sorted(ops.__all__) == sorted(ref_ops.__all__)
+    assert {"spmv_block_ell", "csr_to_block_ell"} <= set(ops.__all__)
     blocks, cols, max_bpr = ops.csr_to_block_ell(_port(_matrix("all zero")),
                                                  bs=8, device="cpu")
     assert max_bpr == 0
