@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
 Every ``csrc/*.cu`` beside this module is one kernel source with a plain C
-interface.  :func:`build_kernels` compiles each source that has no library
-yet with ``nvcc`` for ``sm_90a`` into ``_build/`` (one shared library per
-source, all compiled at once, named by a hash of source and flags), and
+interface; ``csrc/*.cuh`` are headers they share.  :func:`build_kernels`
+compiles each source that has no library yet with ``nvcc`` for ``sm_90a``
+into ``_build/`` (one shared library per source, all compiled at once,
+named by a hash of source, headers and flags), and
 :func:`kernel` binds one of its entry points with ``ctypes``.  Nothing is
 compiled when the module is imported, and nothing here runs on a host
 without a CUDA device: the kernel modules reach it only for CUDA tensors.
@@ -43,9 +44,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the shared library of source ``name`` is built: the name
-    carries a hash of the source and the compiler flags, so an edit to
-    either builds a new library."""
-    src = (CSRC / SOURCES[name]).read_bytes()
+    carries a hash of the source, the shared headers and the compiler
+    flags, so an edit to any of them builds a new library."""
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -7,8 +7,11 @@
     and raises on anything else.  On CUDA tensors it launches K4
     (``csrc/flash_attention.cu``: one thread block per (batch, head, tile
     of 64 query rows), an online softmax over kv tiles staged in shared
-    memory, float32 FMAs) and adds one to :data:`LAUNCHES`; on CPU tensors
-    it is :func:`flash_attention_plain` — there is no fallback.
+    memory) and counts the launch in :data:`LAUNCHES`; on CPU tensors it is
+    :func:`flash_attention_plain` — there is no fallback.  K4 has one
+    kernel for each dtype, chosen by :func:`_entry_for`: bfloat16 runs on
+    the tensor cores (``wgmma``, ``p`` rounded to bfloat16 before P V),
+    float32 as float32 FMAs on the CUDA cores.
 :func:`flash_attention_plain`
     The reference's oracle ``flash_attention_ref``: an einsum in float32,
     a softmax, an einsum, cast to ``q``'s dtype.
@@ -27,8 +30,9 @@ import torch
 
 from .build import kernel, launch
 
-#: Kernel launches since the count was last reset.
-LAUNCHES = {"flash_attention": 0}
+#: Kernel launches since the counts were last reset: every launch, and
+#: those of the tensor-core (bfloat16) kernel alone.
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
 #: Head dims K4 is compiled for.
 HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
@@ -39,8 +43,23 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    """Set the launch count to 0."""
-    LAUNCHES["flash_attention"] = 0
+    """Set the launch counts to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _entry_for(dtype: torch.dtype, head_dim: int) -> str:
+    """Which of K4's kernels takes inputs of ``dtype`` and ``head_dim``:
+    ``"tc"`` (bfloat16, on the tensor cores) or ``"fma"`` (float32, FMAs
+    on the CUDA cores).  A dispatch on the dtype, not a fallback."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not supported; K4 takes "
+                         f"{HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "tc"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"K4 takes float32 or bfloat16, got {dtype}")
 
 
 def _check(q, k, v) -> torch.device:
@@ -104,9 +123,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype (float32 or bfloat16), ``H`` a multiple of ``KH`` (query head
     ``h`` reads kv head ``h // (H // KH)``), ``D`` in :data:`HEAD_DIMS`, any
     ``S``.  Scale ``1 / sqrt(D)``; returns ``[B, S, H, D]`` in ``q``'s
-    dtype.  On CUDA tensors this is one launch of K4, float32-allclose to
-    the plain version (the sums run in another order); on CPU tensors it
-    is :func:`flash_attention_plain`.
+    dtype.  On CUDA tensors this is one launch of K4: for float32 inputs
+    the FMA kernel, float32-allclose to the plain version (the sums run in
+    another order); for bfloat16 the tensor-core kernel, which rounds the
+    softmax weights ``p`` to bfloat16 before ``P V`` (as a TPU's matrix
+    unit does at default precision), moving a row by at most ``2^-9 max_j
+    |v_j|`` beyond the float32 result (``l`` is summed from the unrounded
+    ``p``); it needs 16-byte aligned inputs.  On CPU tensors it is
+    :func:`flash_attention_plain`.
     """
     if _check(q, k, v).type == "cpu":
         return flash_attention_plain(q, k, v, causal)
@@ -116,11 +140,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_attention_cuda(q, k, v, causal: bool) -> torch.Tensor:
     """K4's launch on checked CUDA inputs (the output allocated here)."""
     B, S, H, D = q.shape
+    entry = _entry_for(q.dtype, D)
     out = torch.empty_like(q)
-    if out.numel():
-        launch(kernel("flash_attention", "flash_attention_fwd", _ARGTYPES),
-               q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), B, S, H, k.shape[2], D, int(bool(causal)),
-               int(q.dtype == torch.bfloat16), 1.0 / D ** 0.5)
-        LAUNCHES["flash_attention"] += 1
+    if not out.numel():
+        return out
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    tc = entry == "tc"
+    if tc and any(p % 16 for p in ptrs):
+        raise ValueError("K4's bfloat16 kernel copies 16 bytes at a time: "
+                         "q, k and v must be 16-byte aligned")
+    launch(kernel("flash_attention", "flash_attention_fwd", _ARGTYPES),
+           q.device, *ptrs, B, S, H, k.shape[2], D, int(bool(causal)),
+           int(tc), 1.0 / D ** 0.5)
+    LAUNCHES["flash_attention"] += 1
+    LAUNCHES["flash_attention_tc"] += int(tc)
     return out

@@ -5,7 +5,9 @@ On the CPU the K4 wrapper takes its plain PyTorch version; it is held to the
 Pallas kernel run in interpret mode and to ``flash_attention_ref`` on the
 same seeded inputs: rtol/atol 2e-5 in float32 (the reference's own kernel
 bound) and 1e-2 in bfloat16 (the two round the float32 result to bf16 at
-different sums).  The port's ``attention`` and ``decode_attention`` are held
+different sums).  K4's bfloat16 kernel runs on the tensor cores and rounds
+the softmax weights to bf16 before ``P V``; an emulation of that arithmetic
+in torch justifies the bound the card is held to.  The port's ``attention`` and ``decode_attention`` are held
 to ``repro.nn.attention`` on float32 parameters at rtol/atol 1e-4.  The CUDA
 kernel itself is held to the plain version by the ``gpu`` test, which skips
 without a card.
@@ -31,6 +33,12 @@ from repro_torch.nn import attention as attn  # noqa: E402
 F32_TOL = 2e-5
 BF16_TOL = 1e-2
 LAYER_TOL = 1e-4
+# K4's bfloat16 kernel against the plain version: one bf16 ulp of the
+# output (2^-7 relative covers two roundings) plus rounding p to bf16, at
+# most 2^-9 max_j |v_j| on a row; 2^-8 leaves a factor 2 (chip_smoke.py's
+# k4_err holds the card to K4_TOL + this)
+BF16_P_TOL = 2.0 ** -8
+BF16_OUT_TOL = F32_TOL + 2.0 ** -7
 
 
 def _qkv(seed, B, S, H, KH, D, dtype=np.float32):
@@ -127,6 +135,68 @@ def test_flash_rejects_what_the_kernel_does_not_take(bad):
         ops.mha_flash(q, k, v)
 
 
+# -- K4's tensor-core arithmetic, emulated ----------------------------------
+def _tc_emulation(q, k, v, causal, tile=64):
+    """K4's bfloat16 kernel's arithmetic: float32 scores of bf16 q and k,
+    an online softmax over tiles of 64 keys, ``l`` summed from the float32
+    ``p`` and ``p`` rounded to bf16 before ``P V``; bf16 output."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    qg = q.float().reshape(B, S, KH, H // KH, D)
+    s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k.float()) / D ** 0.5
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool).tril()
+        s = s.masked_fill(~mask, fa.NEG_INF)
+    m = torch.full(s.shape[:-1], fa.NEG_INF)
+    l = torch.zeros(s.shape[:-1])
+    acc = torch.zeros(*s.shape[:-1], D)
+    for k0 in range(0, S, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhrqk,bkhd->bhrqd", p.bfloat16().float(),
+            v[:, k0:k0 + tile].float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).bfloat16()
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("S", [63, 200])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rep", [1, 5])
+def test_tensor_core_arithmetic_within_the_bf16_bound(D, S, causal, rep):
+    q, k, v = (_t(a, torch.bfloat16)
+               for a in _qkv(D + S + rep, 2, S, 2 * rep, 2, D))
+    got = _tc_emulation(q, k, v, causal).float()
+    want = fa.flash_attention_plain(q, k, v, causal).float()
+    vmax = v.float().abs().amax(dim=(1, 3)).repeat_interleave(rep, 1)
+    bound = BF16_OUT_TOL * want.abs() + BF16_P_TOL * vmax[:, None, :, None]
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+    # the rounding of p is visible: the emulation is not the plain version
+    assert bool((err > 0).any())
+
+
+# -- which kernel K4 launches -------------------------------------------------
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "fma")])
+def test_route_by_dtype(D, dtype, entry):
+    assert fa._entry_for(dtype, D) == entry
+
+
+@pytest.mark.parametrize("dtype,D,err", [
+    (torch.float16, 64, TypeError), (torch.bfloat16, 24, ValueError),
+    (torch.float32, 256, ValueError)])
+def test_route_refuses_what_no_kernel_takes(dtype, D, err):
+    with pytest.raises(err):
+        fa._entry_for(dtype, D)
+
+
 # -- the attention layers against repro.nn.attention ---------------------------
 def _attn_params(cfg, seed):
     rng = np.random.default_rng(seed)
@@ -209,18 +279,22 @@ def cuda():
 @pytest.mark.gpu
 def test_cuda_flash_matches_plain_version(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
-    before = fa.LAUNCHES["flash_attention"]
-    n = 0
-    for D in fa.HEAD_DIMS:
-        for rep in (1, 5):
-            for causal in (True, False):
-                for dtype in (torch.float32, torch.bfloat16):
-                    q, k, v = (_t(a, dtype).to(cuda) for a in
-                               _qkv(D + rep, 2, 200, 2 * rep, 2, D))
-                    got = fa.flash_attention(q, k, v, causal)
-                    want = fa.flash_attention_plain(q, k, v, causal)
-                    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-                    torch.testing.assert_close(got.float(), want.float(),
-                                               rtol=tol, atol=tol)
-                    n += 1
-    assert fa.LAUNCHES["flash_attention"] == before + n
+    before = dict(fa.LAUNCHES)
+    n = n_bf16 = 0
+    for S in (63, 200, 2048):
+        for D in fa.HEAD_DIMS:
+            for rep in (1, 5):
+                for causal in (True, False):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        q, k, v = (_t(a, dtype).to(cuda) for a in
+                                   _qkv(D + rep + S, 2, S, 2 * rep, 2, D))
+                        got = fa.flash_attention(q, k, v, causal)
+                        want = fa.flash_attention_plain(q, k, v, causal)
+                        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+                        torch.testing.assert_close(got.float(), want.float(),
+                                                   rtol=tol, atol=tol)
+                        n += 1
+                        n_bf16 += dtype == torch.bfloat16
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + n
+    assert fa.LAUNCHES["flash_attention_tc"] == \
+        before["flash_attention_tc"] + n_bf16
