@@ -11,7 +11,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    (flash attention) and K5 (SSD intra-chunk step) to their plain PyTorch
    versions on the card, on ragged shapes; K4 also at hymba-1.5b's and
    llama3.2-3b's full attention shapes in bf16 (timed beside SDPA), with
-   every bf16 case counted on its tensor-core kernel;
+   every bf16 case counted on its tensor-core kernel; K5 also on ragged q
+   and at hymba-1.5b's and mamba2-130m's full prefill shapes, every case
+   counted on its tensor-core (split-TF32) path;
 3. the small slice: ``best_strategy_many`` over the AMG hierarchy of
    ``elasticity_like_3d(16)`` on ``blue_waters_machine((4, 4, 2))``, on
    cuda and on cpu — identical winners, totals allclose; then one V-cycle
@@ -35,7 +37,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
    tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
    and K5's counts set to 0 just before (32 launches each, one a layer, all
-   of K4's on its tensor-core kernel, and none during decode) and every K4
+   on the tensor cores, and none during decode) and every K4
    and K5 input captured, then 32 greedy
    ``make_serve_step`` decode steps; prefill and decode times, peak device
    memory and the device busy share of a profiled prefill; then
@@ -47,7 +49,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    yardstick, each summed over every call the full-width run made, beside
    the least time the card could take for the same calls; K4's row adds
    its ``path`` ("wgmma"), its TFLOP/s launch alone and ``vs_library``
-   (launch alone over SDPA);
+   (launch alone over SDPA), K5's its ``path`` ("mma.sync 3xTF32"), and
+   both their ``tc_launches``;
 9. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
@@ -97,9 +100,11 @@ BF16_ULP = 2.0 ** -8
 # float32; relative L2 gap allowed, the same bound the CPU tests hold the
 # float32 cycle to against the float64 reference (measured there: ~1.5e-7).
 VCYCLE_RTOL = 1e-5
-# peak rates of one H100 SXM (data sheet, dense): bf16 on the tensor cores,
-# float32 outside them (float32 inputs keep float32 products: TF32 is off)
+# peak rates of one H100 SXM (data sheet, dense): bf16 and TF32 on the
+# tensor cores, float32 outside them (float32 inputs keep float32 products:
+# TF32 is off for torch; K5 splits each float32 product into three TF32 ones)
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 # K4 and K5 against their plain versions: the same float32 products summed
 # in another order, held to the reference's own kernel-test bounds
@@ -798,15 +803,35 @@ def k5_err(ssd, dtx, Bm, Cm, cumA) -> float:
 # K4 at full width beside the main path's shape: (label, B, S, H, KH, D)
 K4_WIDE = (("hymba-1.5b", 4, 2048, 25, 5, 64),
            ("llama3.2-3b", 4, 2048, 24, 8, 128))
+# K5 at the full prefill shapes of 4 x 2048 tokens in chunks of 128:
+# (label, G1 = batch x chunks, heads, q, n, p)
+K5_WIDE = (("hymba-1.5b", 64, 50, 128, 16, 64),
+           ("mamba2-130m", 64, 24, 128, 128, 64))
+
+
+def k5_inputs(gen, G1, h, q, n, p):
+    """K5's inputs as ``nn.ssm.ssd_chunked`` passes them: dtx and cumA
+    transposed views of [G1, q, h, x], B and C [G1, 1, q, n] expanded over
+    the heads (stride 0), cumA a cumulative sum of decays in (-0.1, 0]."""
+    dev = "cuda"
+    dtx = torch.randn(G1, q, h, p, generator=gen, device=dev)
+    Bm, Cm = (torch.randn(G1, 1, q, n, generator=gen, device=dev)
+              .expand(G1, h, q, n) for _ in range(2))
+    a = -0.1 * torch.rand(G1, q, h, generator=gen, device=dev)
+    cumA = a.cumsum(1).permute(0, 2, 1)[..., None]
+    return dtx.permute(0, 2, 1, 3), Bm, Cm, cumA
 
 
 def k4_k5_parity(dev) -> None:
     """K4 on D 16/32/64/128, rep 1 and 5, causal and full, S 1, 63, 200
     (not multiples of the 64-row tile) and 2048, float32 and bfloat16, then
     causal bf16 at hymba-1.5b's and llama3.2-3b's full attention shapes
-    (timed beside SDPA and the bound); K5 on q 16/64/128, n 8/16/128, p
-    16/64 with B and C expanded over 5 heads (stride 0) and dtx and cumA
-    transposed views."""
+    (timed beside SDPA and the bound); K5 on q 1/16/24/64/100/128 (ragged
+    q is padded inside the kernel), n 8/16/128, p 16/64 with B and C
+    expanded over 5 heads (stride 0) and dtx and cumA transposed views, on
+    p 18 and a column-strided dtx (copied four bytes at a time), and at
+    hymba-1.5b's and mamba2-130m's full prefill shapes, every launch on
+    the tensor-core path."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
 
@@ -853,23 +878,37 @@ def k4_k5_parity(dev) -> None:
             f"{f['plain_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms "
             f"({f['bound_by']}); max abs err {err:.3g}")
     worst5, n = 0.0, 0
-    G1, h = 6, 5
-    for q in (16, 64, 128):
+    ssd.reset_launches()
+    for q in (1, 16, 24, 64, 100, 128):
         for nn in (8, 16, 128):
             for p in (16, 64):
-                dtx = torch.randn(G1, q, h, p, generator=gen, device=dev)
-                Bm, Cm = (torch.randn(G1, 1, q, nn, generator=gen,
-                                      device=dev).expand(G1, h, q, nn)
-                          for _ in range(2))
-                a = -0.1 * torch.rand(G1, q, h, generator=gen, device=dev)
-                cumA = a.cumsum(1).permute(0, 2, 1)[..., None]
-                worst5 = max(worst5, k5_err(ssd, dtx.permute(0, 2, 1, 3), Bm,
-                                            Cm, cumA))
+                worst5 = max(worst5, k5_err(ssd, *k5_inputs(gen, 6, 5, q, nn,
+                                                             p)))
                 n += 1
+    # dtx copied four bytes at a time: a head dim that is not a multiple of
+    # 4, and columns that are not adjacent
+    for q, nn, p, strided in ((100, 16, 18, False), (128, 16, 64, True)):
+        dtx, *rest = k5_inputs(gen, 6, 5, q, nn, p)
+        if strided:
+            dtx = dtx.mT.contiguous().mT
+        worst5 = max(worst5, k5_err(ssd, dtx, *rest))
+        n += 1
+    wide = {}
+    for label, *shape in K5_WIDE:
+        wide[label] = k5_err(ssd, *k5_inputs(gen, *shape))
+        worst5 = max(worst5, wide[label])
+        n += 1
     torch.cuda.synchronize()
-    log(f"K5 parity: {n} cases (q 16/64/128, n 8/16/128, p 16/64; B and C "
-        f"expanded over {h} heads, dtx and cumA transposed views), max abs "
-        f"err {worst5:.3g}")
+    if ssd.LAUNCHES["ssd_intra_chunk_tc"] != n:
+        raise AssertionError(f"{ssd.LAUNCHES['ssd_intra_chunk_tc']} of {n} "
+                             f"K5 cases ran on the tensor cores")
+    log(f"K5 parity: {n} cases (q 1/16/24/64/100/128, n 8/16/128, p 16/64; "
+        f"B and C expanded over 5 heads, dtx and cumA transposed views; p 18 "
+        f"and column-strided dtx; "
+        f"full width " + ", ".join(f"{k} {v:.3g}" for k, v in wide.items())
+        + f"), max abs err {worst5:.3g} (limit {K5_TOL} + {K5_TOL} |want|); "
+        f"{ssd.LAUNCHES['ssd_intra_chunk_tc']} of {n} on the tensor-core "
+        f"path")
 
 
 # -- phases 6 and 7: the model ---------------------------------------------------
@@ -1103,16 +1142,20 @@ def k5_call_figures(ssd, dtx, Bm, Cm, cumA) -> dict:
     """CUDA-event times of one K5 call (the wrapper, the launch alone, the
     plain version; no single PyTorch call computes it) beside its bound:
     the larger of its bytes (dtx, cumA, y and S_c once a program, B and C
-    once a (batch, chunk), float32) at 3.35 TB/s and its float32 flops
-    (the lower triangle of C B^T, its decay and its product with dtx, then
-    S_c) at the card's float32 rate."""
+    once a (batch, chunk), float32) at 3.35 TB/s and the tensor-core flops
+    of its products at the card's TF32 rate, three TF32 products for each
+    float32 one (the lower triangle of C B^T once a (batch, chunk), then a
+    head's scores times dtx and S_c).  ``bound_f32_ms`` is the bound of
+    the CUDA-core kernel K5 replaced, kept to compare with: every float32
+    flop (C B^T per head, the decay, both products) at the float32 rate."""
     G1, h, q, p = dtx.shape
     n = Bm.shape[-1]
     G = G1 * h
     moved = 4 * (2 * G * q * p + G * q + 2 * G1 * q * n + G * n * p)
     tri = q * (q + 1) // 2
     flops = G * (tri * (2 * n + 1 + 2 * p) + q * n + 2 * q * n * p)
-    t_ops, t_bytes = flops / F32_FLOPS, moved / HBM_BYTES_PER_S
+    tc_flops = 3 * (G1 * tri * 2 * n + G * (tri * 2 * p + 2 * q * n * p))
+    t_ops, t_bytes = tc_flops / TF32_FLOPS, moved / HBM_BYTES_PER_S
     heads = (G, h, q, n, p)
     reps = 5
     return dict(
@@ -1123,7 +1166,8 @@ def k5_call_figures(ssd, dtx, Bm, Cm, cumA) -> dict:
                          reps),
         bound_ms=max(t_ops, t_bytes) * 1e3,
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        flops=flops, bytes=moved)
+        bound_f32_ms=max(flops / F32_FLOPS, t_bytes) * 1e3,
+        flops=flops, tc_flops=tc_flops, bytes=moved)
 
 
 def model_kernel_rows(launches, captured, dev_ms) -> list:
@@ -1144,7 +1188,8 @@ def model_kernel_rows(launches, captured, dev_ms) -> list:
         errs = [err_of(a, kw) for a, kw in calls]
         figs = [figs_of(a, kw) for a, kw in calls]
         keys = [k for k in ("ms", "kernel_ms", "plain_ms", "library_ms",
-                            "bound_ms", "flops", "bytes") if k in figs[0]]
+                            "bound_ms", "bound_f32_ms", "flops", "tc_flops",
+                            "bytes") if k in figs[0]]
         total = {k: sum(f[k] for f in figs) for k in keys}
         shapes = [tuple(t.shape) for t in calls[0][0]]
         log(f"{name} over the full-width prefill's {len(calls)} calls "
@@ -1157,8 +1202,11 @@ def model_kernel_rows(launches, captured, dev_ms) -> list:
             + (f"{total['library_ms']:.4f} ms" if "library_ms" in total
                else "none")
             + f", bound {total['bound_ms']:.4f} ms ({figs[0]['bound_by']}: "
-            f"{total['flops']} flops, {total['bytes']} bytes); max abs err "
-            f"{max(errs):.3g}")
+            f"{total['flops']} flops, {total['bytes']} bytes"
+            + (f"; {total['tc_flops']} split-TF32 flops; as float32 on the "
+               f"CUDA cores {total['bound_f32_ms']:.4f} ms"
+               if "tc_flops" in total else "")
+            + f"); max abs err {max(errs):.3g}")
         rows.append(dict(name=name, route="cuda", source=KERNEL_ROWS[name][0],
                          replaces=KERNEL_ROWS[name][1],
                          launches=launches[name], max_abs_err=max(errs),
@@ -1169,12 +1217,17 @@ def model_kernel_rows(launches, captured, dev_ms) -> list:
                          kernel_ms=total["kernel_ms"],
                          device_ms=dev_ms[name], calls=len(calls),
                          flops=total["flops"], bytes=total["bytes"],
-                         inputs=[list(s) for s in shapes]))
-    k4 = rows[0]
+                         inputs=[list(s) for s in shapes],
+                         **{k: total[k] for k in ("bound_f32_ms", "tc_flops")
+                            if k in total}))
+    k4, k5 = rows
     k4.update(path="wgmma",
               tflops=k4["flops"] / k4["kernel_ms"] / 1e9,
               vs_library=k4["kernel_ms"] / k4["library_ms"],
               tc_launches=launches["flash_attention_tc"])
+    k5.update(path="mma.sync 3xTF32",
+              tflops=k5["tc_flops"] / k5["kernel_ms"] / 1e9,
+              tc_launches=launches["ssd_intra_chunk_tc"])
     return rows
 
 

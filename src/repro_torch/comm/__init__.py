@@ -1,1 +1,29 @@
-"""CommPhase, the PhaseStack arena, shared primitives and strategy rewrites."""
+"""CommPhase, the PhaseStack arena, shared primitives and strategy rewrites.
+
+Re-exports the names of ``repro.comm``'s ``__all__`` that the port defines
+in the same submodules.  The rest waits for its ROADMAP item: delta
+re-pricing (1), payload accounting (3), fault injection and the health
+ledger (8), the per-phase sums (9) and typed validation (10).
+"""
+from .phase import CommPhase
+from .primitives import (active_senders_per_node, transport_times,
+                         group_by_receiver, sum_by_pairs, segmented_arange,
+                         grouped_queue_steps, queue_traversal_steps,
+                         batched_queue_traversal_steps)
+from .stack import PhaseStack, StackSimArrays
+from .strategies import (STRATEGIES, GPU_STRATEGIES, StrategyPlan,
+                         StrategyVerdict, strategies_for, standard, two_step,
+                         three_step, host_staged, device_direct, rewrite,
+                         best_strategy, best_strategy_many)
+
+__all__ = [
+    "CommPhase", "PhaseStack", "StackSimArrays",
+    "active_senders_per_node", "transport_times",
+    "group_by_receiver", "sum_by_pairs", "segmented_arange",
+    "grouped_queue_steps",
+    "queue_traversal_steps", "batched_queue_traversal_steps",
+    "STRATEGIES", "GPU_STRATEGIES", "StrategyPlan", "StrategyVerdict",
+    "strategies_for",
+    "standard", "two_step", "three_step", "host_staged", "device_direct",
+    "rewrite", "best_strategy", "best_strategy_many",
+]

@@ -30,16 +30,19 @@ another backend.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 
-from repro_torch.core.models import CostBreakdown, phase_cost_many
 from repro_torch.device import resolve_device
-from repro_torch.net.simulator import PhaseResult, simulate_many
 
 from .phase import CommPhase
 from .primitives import segmented_arange, sum_by_pairs
 from .stack import PhaseStack
+
+if TYPE_CHECKING:
+    from repro_torch.core.models import CostBreakdown
+    from repro_torch.net.simulator import PhaseResult
 
 STRATEGIES = ("standard", "two_step", "three_step")
 
@@ -376,6 +379,11 @@ def price_candidates(cands: CandidateSet, level: str = "contention",
     simulator (under each row's arrival orders), on ``device`` (``None`` =
     CUDA): one :class:`~repro_torch.comm.stack.PhaseStack` per machine,
     shared by both passes."""
+    # imported here, as the reference does: both import comm.stack, so a
+    # top-level import would make the packages' re-exports circular
+    from repro_torch.core.models import phase_cost_many
+    from repro_torch.net.simulator import simulate_many
+
     device = resolve_device(device)
     costs: list = [None] * len(cands.phases)
     sims: list = [None] * len(cands.phases)

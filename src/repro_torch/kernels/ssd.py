@@ -9,10 +9,14 @@ For each program g (one batch row, chunk and head) of a chunked SSD scan::
 :func:`ssd_intra_chunk`
     Checks shapes, dtypes, devices and shared-memory size from the tensors'
     metadata alone (no device-to-host read) and raises on anything else.
-    On CUDA tensors it launches K5 (``csrc/ssd.cu``: one thread block per
-    program, the ``[q, q]`` score tile in shared memory) and adds one to
-    :data:`LAUNCHES`; on CPU tensors it is :func:`ssd_intra_chunk_plain` —
-    there is no fallback.
+    On CUDA tensors it launches K5 (``csrc/ssd.cu``) and adds one to both
+    counts of :data:`LAUNCHES`; on CPU tensors it is
+    :func:`ssd_intra_chunk_plain` — there is no fallback.  K5 is one
+    kernel: a block takes one (batch, chunk) and a group of its heads that
+    share B and C, forms the lower triangle of ``C B^T`` once for the group
+    and, head by head, the decayed scores, ``y`` and ``S_c``.  Every
+    product runs on the tensor cores as three TF32 products (``a = hi +
+    lo``, ``hi hi + hi lo + lo hi``), which keeps it float32-accurate.
 :func:`ssd_intra_chunk_plain`
     The reference's oracle ``ssd_intra_chunk_ref`` in float32 einsums.
 
@@ -32,24 +36,37 @@ import torch
 
 from .build import kernel, launch
 
-#: Kernel launches since the count was last reset.
-LAUNCHES = {"ssd_intra_chunk": 0}
+#: Kernel launches since the counts were last reset: every launch, and
+#: those on the tensor cores (all of them: K5 has no other kernel).
+LAUNCHES = {"ssd_intra_chunk": 0, "ssd_intra_chunk_tc": 0}
 #: Shared memory one thread block may use on Hopper.
 MAX_SMEM = 232448
+#: Largest chunk length, state size and head dim K5 takes.
+MAX_Q = MAX_N = MAX_P = 128
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P,) * 7 + (_I,) * 5
 
 
 def reset_launches() -> None:
-    """Set the launch count to 0."""
-    LAUNCHES["ssd_intra_chunk"] = 0
+    """Set the launch counts to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def smem_bytes(q: int, n: int, p: int) -> int:
-    """Shared memory of one K5 program: C and B (rows padded by one), dtx,
-    the score tile, cumA and the chunk-end decays, all float32."""
-    return 4 * (2 * q * (n + 1) + q * p + q * q + 2 * q)
+    """Shared memory of one K5 block, float32 (``dims_of`` and
+    ``smem_floats`` in ``csrc/ssd.cu``): the ``16 x 8`` tiles of ``C B^T``
+    on or below the diagonal, ``B^T`` ``[n, q]``, two dtx buffers ``[q,
+    p]`` (which first hold C ``[q, n]``) and two cumA buffers, with q
+    padded to 16, n to 16 and p to 32."""
+    qp, np_, pp = _up(q, 16), _up(n, 16), _up(p, 32)
+    tiles = qp // 16 * (qp // 16 + 1)
+    return 4 * (128 * tiles + np_ * qp + max(2 * qp * pp, qp * np_) + 2 * qp)
 
 
 def _as4(t: torch.Tensor) -> torch.Tensor:
@@ -81,11 +98,12 @@ def _check(dtx, Bm, Cm, cumA):
     if a4.shape != (G1, heads, q, 1):
         raise ValueError(f"cumA must be [*, q, 1] matching dtx, got "
                          f"{tuple(cumA.shape)}")
-    if min(q, n, p) < 1:
-        raise ValueError(f"q, n and p must be positive, got {q}, {n}, {p}")
+    if min(q, n, p) < 1 or q > MAX_Q or n > MAX_N or p > MAX_P:
+        raise ValueError(f"q, n and p must be 1 to {MAX_Q}, got {q}, {n}, "
+                         f"{p}")
     if smem_bytes(q, n, p) > MAX_SMEM:
         raise ValueError(f"q={q}, n={n}, p={p} needs {smem_bytes(q, n, p)} "
-                         f"bytes of shared memory a program; K5 has "
+                         f"bytes of shared memory a block; K5 has "
                          f"{MAX_SMEM}")
     dev = dtx.device
     if any(t.device != dev for _, t in named):
@@ -118,9 +136,9 @@ def ssd_intra_chunk(dtx, Bm, Cm, cumA):
     ``cumA`` ``[G, q, 1]`` (inclusive cumulative log-decay), all float32;
     or each ``[G1, h, q, x]`` with any strides.  Returns ``(y_intra [G, q,
     p], S_c [G, n, p])``, contiguous float32.  On CUDA tensors this is one
-    launch of K5 (``q, n, p`` within :data:`MAX_SMEM` bytes of shared
-    memory a program, :func:`smem_bytes`), float32-allclose to the plain
-    version; on CPU tensors it is :func:`ssd_intra_chunk_plain`.
+    launch of K5 (``q, n, p`` at most 128 and within :data:`MAX_SMEM` bytes
+    of shared memory a block, :func:`smem_bytes`), float32-allclose to the
+    plain version; on CPU tensors it is :func:`ssd_intra_chunk_plain`.
     """
     dev, G, heads, q, n, p = _check(dtx, Bm, Cm, cumA)
     if dev.type == "cpu":
@@ -139,4 +157,5 @@ def _ssd_intra_chunk_cuda(dtx, Bm, Cm, cumA, G, heads, q, n, p):
                dtx.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), cumA.data_ptr(),
                y.data_ptr(), s.data_ptr(), strides, G, heads, q, n, p)
         LAUNCHES["ssd_intra_chunk"] += 1
+        LAUNCHES["ssd_intra_chunk_tc"] += 1
     return y, s

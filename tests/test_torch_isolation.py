@@ -60,6 +60,61 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert int(res.stdout.split()[-1]) >= 40
 
 
+# Reads the reference package's ``__init__`` as text (its ``__all__`` and
+# the submodule each name is imported from), so neither jax nor ``repro`` is
+# imported; prints the names re-exported, then the names left out.
+_EXPORTS = """
+import ast, importlib, sys
+pkg, ref_init = sys.argv[1], sys.argv[2]
+tree = ast.parse(open(ref_init).read())
+home, ref_all = {}, None
+for node in tree.body:
+    if isinstance(node, ast.ImportFrom) and node.level == 1:
+        for a in node.names:
+            home[a.asname or a.name] = (node.module, a.name)
+    elif isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
+        ref_all = ast.literal_eval(node.value)
+port = importlib.import_module("repro_torch." + pkg)
+ported, left = [], []
+for name in ref_all:
+    sub, orig = home[name]
+    try:
+        mod = importlib.import_module("repro_torch." + pkg + "." + sub)
+    except ModuleNotFoundError:
+        left.append(name)
+        continue
+    if not hasattr(mod, orig):
+        left.append(name)
+        continue
+    assert getattr(port, name, None) is getattr(mod, orig), name
+    ported.append(name)
+assert sorted(port.__all__) == sorted(ported), (port.__all__, ported)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "repro"))
+assert not bad, bad
+print(" ".join(ported))
+print(" ".join(left))
+"""
+
+
+@pytest.mark.parametrize("pkg,must", [
+    ("comm", ("best_strategy_many", "PhaseStack", "CommPhase",
+              "grouped_queue_steps")),
+    ("core", ("phase_cost_many", "CommParams", "TorusTopology")),
+    ("net", ("simulate_many", "blue_waters_machine", "MachineSpec"))])
+def test_packages_export_every_ported_name_of_the_reference(pkg, must):
+    # every name of repro.<pkg>.__all__ that the port defines in the
+    # counterpart submodule is the same object at repro_torch.<pkg>, and
+    # repro_torch.<pkg>.__all__ lists exactly those
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-c", _EXPORTS, pkg,
+         str(ROOT / "src" / "repro" / pkg / "__init__.py")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr + res.stdout
+    ported = res.stdout.splitlines()[0].split()
+    assert set(must) <= set(ported), ported
+
+
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     m = blue_waters_machine((2, 1, 1))
