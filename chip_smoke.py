@@ -9,7 +9,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    lines and the card;
 2. hold K1 (segment reduce), K2 (queue walk), K3 (block-ELL SpMV), K4
    (flash attention) and K5 (SSD intra-chunk step) to their plain PyTorch
-   versions on the card, on ragged shapes; K4 also at hymba-1.5b's and
+   versions on the card, on ragged shapes; K1 also on sorted runs, random
+   ids and one hot segment below its shared-memory capacity and on sorted,
+   random and short-run ids above it, each on the path the wrapper picks
+   and forced onto each path that applies; K4 also at hymba-1.5b's and
    llama3.2-3b's full attention shapes in bf16 (timed beside SDPA), with
    every bf16 case counted on its tensor-core kernel; K5 also on ragged q
    and at hymba-1.5b's and mamba2-130m's full prefill shapes, every case
@@ -23,11 +26,16 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``blue_waters_machine((8, 8, 4))`` (8,192 ranks), swept by
    ``best_strategy_many`` on cuda with K1's and K2's counts set to 0 just
    before; every kernel input of that run is captured and each kernel's
-   output there is held to its plain version;
+   output there is held to its plain version, and the path each K1 call
+   took is logged;
 5. the full-width V-cycle on the same hierarchy: ``DeviceHierarchy.build``
-   timed, one V(2,2) cycle on cuda with K3's count set to 0 just before
+   timed, every operator held to its plain version at each lane count K3
+   takes (1-32), a ``cols`` past the block columns refused before any
+   launch, one V(2,2) cycle on cuda with K3's count set to 0 just before
    (every SpMV is one K3 launch: 85 on the 6-level hierarchy) and its
-   inputs captured, held to the same cycle on cpu, then 10 cycles with the
+   inputs captured, the same recursion again on device vectors under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no SpMV waits for the
+   device), held to the same cycle on cpu, then 10 cycles with the
    relative residual computed on the host in float64;
 6. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
    width cut to 2 layers, float32 weights, one 256-token prompt, ``prefill``
@@ -47,7 +55,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    worst error against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
    yardstick, each summed over every call the full-width run made, beside
-   the least time the card could take for the same calls; K4's row adds
+   the least time the card could take for the same calls; K1's row adds
+   its launches by path and each call's path, K3's its lanes per operator
+   and its bound over every padded slot (``bound_padded_ms``); K4's row adds
    its ``path`` ("wgmma"), its TFLOP/s launch alone and ``vs_library``
    (launch alone over SDPA), K5's its ``path`` ("mma.sync 3xTF32"), and
    both their ``tc_launches``;
@@ -163,25 +173,62 @@ def sync_time(fn):
 
 # -- phase 2: kernel parity ------------------------------------------------
 
-def k1_err(ks, values, ids, n_seg) -> float:
-    """K1 against its plain version on one input; returns the worst abs
-    error.  Sums: within ATOL + RTOL x the segment's sum of magnitudes (the
-    atomics reorder the additions; for non-negative values — every input
-    of the main path — this is allclose at rtol 1e-4 / atol 1e-6).
-    Maxima: equal, since a maximum does not depend on order."""
-    sums, maxs = ks.segment_reduce(values, ids, n_seg)
-    want_s, want_m = ks.segment_reduce_plain(values, ids, n_seg)
+def k1_err(ks, values, ids, n_seg, path=None) -> float:
+    """K1 against its plain version on one input, through the wrapper or,
+    with ``path``, the launch alone on that path; returns the worst abs
+    error and the worst error relative to the bound.  Sums: within ATOL +
+    RTOL x the segment's sum of magnitudes of the float64 sum (the kernel
+    adds in another order; for non-negative values — every input of the
+    main path — this is allclose at rtol 1e-4 / atol 1e-6; the float32
+    plain version's own atomics drift past it on one hot segment of 10^6
+    messages).  Maxima: equal to the plain version's, since a maximum does
+    not depend on order."""
+    sums, maxs = (ks.segment_reduce(values, ids, n_seg) if path is None else
+                  ks._segment_reduce_cuda(values, ids, n_seg, path))
+    _, want_m = ks.segment_reduce_plain(values, ids, n_seg)
     if n_seg == 0:
         return 0.0, 0.0
-    scale, _ = ks.segment_reduce_plain(values.abs(), ids, n_seg)
+    want_s = ks.segment_reduce_plain(values.double(), ids, n_seg)[0]
+    scale, _ = ks.segment_reduce_plain(values.double().abs(), ids, n_seg)
     err = (sums - want_s).abs()
     if bool((err > ATOL + RTOL * scale).any()):
         raise AssertionError(f"segment_reduce sums off by up to "
                              f"{float(err.max())} (n={values.numel()}, "
                              f"n_seg={n_seg})")
     torch.testing.assert_close(maxs, want_m, rtol=0, atol=0)
-    rel = float((err / scale.clamp_min(ATOL / RTOL)).max())
-    return float(torch.maximum(err.max(), (maxs - want_m).abs().max())), rel
+    rel = float((err / (ATOL + RTOL * scale)).max())
+    return float(torch.maximum(err.max().float(),
+                               (maxs - want_m).abs().max())), rel
+
+
+def k1_inputs(rng, dev):
+    """(label, values, ids, n_seg) of K1's parity phase: ragged sizes, then
+    the shapes its redesign is for, each below and above the shared-memory
+    capacity ``ks.K1_BIN_CAP`` (4,096 segments)."""
+    def t(vals, ids):
+        return (torch.from_numpy(np.asarray(vals, np.float32)).to(dev),
+                torch.from_numpy(np.asarray(ids, np.int32)).to(dev))
+    for n, n_seg in ((0, 5), (1, 1), (1, 7), (513, 2000), (1_000_000, 3)):
+        yield (f"n {n}, {n_seg} random ids",
+               *t(rng.standard_normal(n) * 1e3, rng.integers(0, n_seg, n)),
+               n_seg)
+    phase = np.repeat(np.arange(46), rng.integers(30_000, 55_000, 46))
+    yield "46 sorted runs", *t(rng.exponential(1e3, phase.size), phase), 46
+    hot = np.full(1_500_000, 7)
+    hot[rng.integers(0, hot.size, 1000)] = rng.integers(0, 50, 1000)
+    yield "one hot segment", *t(rng.exponential(10.0, hot.size), hot), 50
+    yield "random ids, 300 segments", *t(rng.standard_normal(1_000_003),
+                                         rng.integers(0, 300, 1_000_003)), 300
+    ids = np.sort(rng.integers(0, 400_000, 2_000_000))
+    yield "sorted ids above capacity", *t(rng.exponential(1.0, ids.size),
+                                          ids), 400_000
+    yield "random ids above capacity", *t(
+        rng.standard_normal(1_000_000) * 1e3,
+        rng.integers(0, 300_000, 1_000_000)), 300_000
+    keys = np.repeat(np.sort(rng.integers(0, 36_000, 1_500_000)),
+                     rng.integers(1, 5, 1_500_000))
+    yield "short runs above capacity", *t(rng.exponential(1.0, keys.size),
+                                          keys), 36_000
 
 
 def k2_check(ks, posted, arrival, bounds) -> int:
@@ -199,16 +246,17 @@ def k2_check(ks, posted, arrival, bounds) -> int:
 
 def kernel_parity(ks, dev) -> None:
     rng = np.random.default_rng(0)
-    worst = 0.0
-    # ragged: n = 0, 1, 513 (many empty segments), 10^6 (many / few segments)
-    for n, n_seg in ((0, 5), (1, 1), (1, 7), (513, 2000), (1_000_000, 300_000),
-                     (1_000_000, 3)):
-        vals = torch.from_numpy(
-            (rng.standard_normal(n) * 1e3).astype(np.float32)).to(dev)
-        ids = torch.from_numpy(
-            rng.integers(0, n_seg, n).astype(np.int32)).to(dev)
-        worst = max(worst, k1_err(ks, vals, ids, n_seg)[0])
-    log(f"K1 parity: 6 ragged shapes, max abs err {worst:.3g}")
+    worst, rel, cases = 0.0, 0.0, 0
+    for label, vals, ids, n_seg in k1_inputs(rng, dev):
+        paths = ["global"] + (["smem"] if n_seg <= ks.K1_BIN_CAP else [])
+        for path in [None, *paths]:
+            e, r = k1_err(ks, vals, ids, n_seg, path)
+            worst, rel, cases = max(worst, e), max(rel, r), cases + 1
+        log(f"  K1 {label} (n {vals.numel()}, {n_seg} segments): wrapper "
+            f"takes {ks.k1_path(n_seg)}; {' and '.join(paths)} path held "
+            f"to the plain version")
+    log(f"K1 parity: {cases} cases, max abs err {worst:.3g}, worst error "
+        f"{rel:.3g} of the bound")
     for n_regions, max_count in ((1, 1), (3, 0), (40, 25), (2, 2000),
                                  (50_000, 64)):
         counts = rng.integers(0, max_count + 1, n_regions)
@@ -223,11 +271,14 @@ def kernel_parity(ks, dev) -> None:
     log("K2 parity: 5 region layouts, bit-equal")
 
 
-def k3_err(ell, blocks, cols, x) -> float:
-    """K3 against its plain version on one input; returns the worst abs
-    error, or raises if a row is off by more than K3_RTOL of its sum of
-    magnitudes (plus one bfloat16 rounding step of the output)."""
-    got = ell.spmv_block_ell(blocks, cols, x)
+def k3_err(ell, blocks, cols, x, lanes=None) -> float:
+    """K3 against its plain version on one input, through the wrapper or,
+    with ``lanes``, the launch alone with that many threads a row; returns
+    the worst abs error, or raises if a row is off by more than K3_RTOL of
+    its sum of magnitudes (plus one bfloat16 rounding step of the
+    output)."""
+    got = (ell.spmv_block_ell(blocks, cols, x) if lanes is None else
+           ell._spmv_block_ell_cuda(blocks, cols, x, lanes))
     want = ell.spmv_block_ell_plain(blocks, cols, x)
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"spmv_block_ell gave {got.dtype} "
@@ -376,8 +427,8 @@ def full_slice(ks):
         f"{FULL['torus']}) ({m.n_procs} ranks); operator + hierarchy + "
         f"patterns {t_setup:.2f} s (host)")
 
-    captured = {name: [] for name in ks.LAUNCHES}
-    real = {name: getattr(ks, name) for name in ks.LAUNCHES}
+    captured = {name: [] for name in ("segment_reduce", "queue_walk")}
+    real = {name: getattr(ks, name) for name in captured}
     real_cands, real_price = strategies.candidate_set, \
         strategies.price_candidates
     split = {}
@@ -465,6 +516,7 @@ def full_vcycle(levels):
         f"{sum(t.numel() * t.element_size() for t in tensors)} bytes on the "
         f"card; max_bpr per level (A, P, P^T): {max_bpr}")
 
+    k3_lanes_parity(ell, h, label)
     b = np.random.default_rng(0).standard_normal(A.n_rows)
     vcycle(h, b)                                      # warm-up, not counted
     captured = []
@@ -490,6 +542,7 @@ def full_vcycle(levels):
     if launches != expected:
         raise AssertionError(f"spmv_block_ell launched {launches} times on "
                              f"the full-width V-cycle, expected {expected}")
+    no_sync_cycle(h, b, x_gpu)
     x_cpu, t_cpu = sync_time(lambda: vcycle(h.to("cpu"), b))
     rel = rel_l2(x_gpu, x_cpu)
     if not rel <= VCYCLE_RTOL or not bool(torch.isfinite(x_gpu).all()):
@@ -520,6 +573,68 @@ def full_vcycle(levels):
         raise AssertionError(f"full V-cycle residuals do not fall: {res}")
     return launches, captured, [label[c[0].data_ptr()] for c in captured], \
         host, device_ms
+
+
+def k3_lanes_parity(ell, h, label) -> None:
+    """Every operator of the hierarchy at every lane count K3 takes, each
+    held to the plain version (``k3_err`` with the launch forced); then a
+    ``cols`` with an id past the block columns must raise before any
+    launch."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    worst, n = 0.0, 0
+    ops = [op for lv in h.levels for op in (lv.A, lv.P, lv.PT) if op]
+    for blocks, cols in ops:
+        x = torch.randn(int(cols.max()) * blocks.shape[2] + blocks.shape[2],
+                        generator=gen, device="cuda")
+        for lanes in (1, 2, 4, 8, 16, 32):
+            worst = max(worst, k3_err(ell, blocks, cols, x, lanes))
+            n += 1
+    torch.cuda.synchronize()
+    picked = []
+    for blocks, _ in ops:
+        nbr, max_bpr, bs, _ = blocks.shape
+        picked.append(f"{label[blocks.data_ptr()]} "
+                      f"{ell.lanes_for(nbr * bs, bs, max_bpr)}")
+    log(f"K3 lanes parity: {len(ops)} operators of the full hierarchy x "
+        f"lanes 1-32 ({n} launches), max abs err {worst:.3g}; lanes picked: "
+        + ", ".join(picked))
+    blocks, cols = h.levels[0].A
+    bad = cols.clone()
+    bad[-1, 0] = blocks.shape[0]                  # one past the last column
+    before = ell.LAUNCHES["spmv_block_ell"]
+    try:
+        ell.spmv_block_ell(blocks, bad, h.levels[0].dinv)
+    except ValueError as e:
+        if ell.LAUNCHES["spmv_block_ell"] != before:
+            raise AssertionError("K3 launched on out-of-range cols") from e
+        log(f"K3 refuses out-of-range cols before launching: {e}")
+    else:
+        raise AssertionError("K3 took a block-column id past the columns")
+
+
+def no_sync_cycle(h, b, want) -> None:
+    """One full-width cycle's recursion on device vectors under
+    ``torch.cuda.set_sync_debug_mode("error")``: any call that waits for
+    the device raises, so no SpMV of the cycle syncs; the result must equal
+    the counted cycle's."""
+    from repro_torch.sparse.amg import _vcycle
+
+    lv = h.levels[0]
+    bp = torch.zeros(lv.dinv.numel(), device="cuda")
+    bp[:lv.n] = torch.from_numpy(b.astype(np.float32)).cuda()
+    xp = torch.zeros_like(bp)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = _vcycle(h, bp, xp, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rel = rel_l2(got[:lv.n], want)
+    if not rel <= VCYCLE_RTOL:
+        raise AssertionError(f"cycle under sync debug mode: relative L2 "
+                             f"{rel} from the counted cycle")
+    log(f"full V-cycle recursion under set_sync_debug_mode('error'): no "
+        f"sync, relative L2 {rel:.3g} from the counted cycle")
 
 
 def device_share(fn) -> list:
@@ -636,7 +751,8 @@ def kernel_rows(ks, launches, captured, clock_hz):
     errs = [k1_err(ks, *c) for c in calls]
     figs = [k1_call_figures(ks, *c) for c in calls]
     for (v, _, n_seg), f in zip(calls, figs):
-        log(f"K1 full-width call n={v.numel()}, n_seg={n_seg}: wrapper "
+        log(f"K1 full-width call n={v.numel()}, n_seg={n_seg}, path "
+            f"{ks.k1_path(n_seg)}: wrapper "
             f"{f['ms']:.4f} ms, launch alone {f['kernel_ms']:.4f} ms, plain "
             f"{f['plain_ms']:.4f} ms, library {f['library_ms']:.4f} ms, "
             f"bound {f['bound_ms']:.5f} ms (bytes)")
@@ -652,6 +768,9 @@ def kernel_rows(ks, launches, captured, clock_hz):
                      source=KERNEL_ROWS["segment_reduce"][0],
                      replaces=KERNEL_ROWS["segment_reduce"][1],
                      launches=launches["segment_reduce"],
+                     paths={p: launches[f"segment_reduce_{p}"]
+                            for p in ("smem", "global")},
+                     call_paths=[ks.k1_path(c[2]) for c in calls],
                      max_abs_err=max(e for e, _ in errs), ms=total["ms"],
                      plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
                      bound_by="bytes", library_ms=total["library_ms"],
@@ -683,16 +802,32 @@ def kernel_rows(ks, launches, captured, clock_hz):
     return rows
 
 
+def k3_read_slots(ell, blocks, cols) -> int:
+    """Slots K3 reads on this input: every slot, or, for a pair in
+    ``csr_to_block_ell``'s layout (``padding_at_end``), slot 0 of each
+    block row and every slot at a block column other than 0 (the rest is
+    padding, where the kernel stops)."""
+    nbr, max_bpr = cols.shape
+    if not ell.padding_at_end(blocks, cols) or max_bpr == 0:
+        return nbr * max_bpr
+    return nbr + int((cols[:, 1:] != 0).sum())
+
+
 def k3_call_figures(ell, blocks, cols, x, S) -> dict:
     """CUDA-event times of one K3 call (the wrapper as the V-cycle calls it,
     the launch alone, the plain version, and ``S @ x`` with ``S`` the same
     matrix as a float32 ``torch.sparse_csr_tensor``, the one-call PyTorch
-    yardstick) beside its bytes bound: blocks, ids and x read once and y
-    written once at 3.35 TB/s."""
-    nbr, _, bs, _ = blocks.shape
+    yardstick) beside its bytes bound: the blocks K3 must read (padding
+    past a block row's last block excluded: ``k3_read_slots``), ids and x
+    read once and y written once at 3.35 TB/s; ``bound_padded_ms`` counts
+    every slot, as the kernel's first bound did."""
+    nbr, max_bpr, bs, _ = blocks.shape
     xs = x[:S.shape[1]]
-    moved = (blocks.numel() * blocks.element_size() + cols.numel() * 4
-             + x.numel() * x.element_size() + nbr * bs * x.element_size())
+    rest = (cols.numel() * 4 + x.numel() * x.element_size()
+            + nbr * bs * x.element_size())
+    block_bytes = bs * bs * blocks.element_size()
+    moved = k3_read_slots(ell, blocks, cols) * block_bytes + rest
+    padded = nbr * max_bpr * block_bytes + rest
     reps = 20
     return dict(
         ms=cuda_ms(lambda: ell.spmv_block_ell(blocks, cols, x), reps),
@@ -701,7 +836,9 @@ def k3_call_figures(ell, blocks, cols, x, S) -> dict:
         plain_ms=cuda_ms(lambda: ell.spmv_block_ell_plain(blocks, cols, x),
                          reps),
         library_ms=cuda_ms(lambda: S @ xs, reps),
-        bound_ms=moved / HBM_BYTES_PER_S * 1e3, bytes=moved)
+        bound_ms=moved / HBM_BYTES_PER_S * 1e3, bytes=moved,
+        bound_padded_ms=padded / HBM_BYTES_PER_S * 1e3,
+        lanes=ell.lanes_for(nbr * bs, bs, max_bpr))
 
 
 def k3_row(launches, captured, labels, host, device_ms) -> dict:
@@ -719,7 +856,8 @@ def k3_row(launches, captured, labels, host, device_ms) -> dict:
     errs = [k3_err(ell, *c) for c in captured]
     figs = [k3_call_figures(ell, *c, sparse[name])
             for c, name in zip(captured, labels)]
-    keys = ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_padded_ms")
     for name in dict.fromkeys(labels):
         mine = [k for k, lab in enumerate(labels) if lab == name]
         blocks = captured[mine[0]][0]
@@ -727,19 +865,23 @@ def k3_row(launches, captured, labels, host, device_ms) -> dict:
         M = host[name]
         log(f"K3 {name}: {len(mine)} call(s), {M.shape[0]} x {M.shape[1]}, "
             f"{M.nnz} nnz, block-ELL {tuple(blocks.shape)} "
-            f"({figs[mine[0]]['bytes']} bytes a call); summed: wrapper "
+            f"({figs[mine[0]]['bytes']} bytes a call), lanes "
+            f"{figs[mine[0]]['lanes']}; summed: wrapper "
             f"{tot['ms']:.4f} ms, launch alone {tot['kernel_ms']:.4f} ms "
             f"({sum(figs[i]['bytes'] for i in mine) / tot['kernel_ms'] / 1e6:.0f}"
             f" GB/s), plain {tot['plain_ms']:.4f} ms, library "
             f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.5f} ms "
-            f"(bytes)")
+            f"(bytes; every slot {tot['bound_padded_ms']:.5f})")
     total = {k: sum(f[k] for f in figs) for k in keys}
     slow = max(range(len(figs)), key=lambda k: figs[k]["kernel_ms"])
     log(f"K3 over the full-width V-cycle's {len(figs)} calls: wrapper "
         f"{total['ms']:.4f} ms, launch alone {total['kernel_ms']:.4f} ms, "
         f"plain {total['plain_ms']:.4f} ms, library {total['library_ms']:.4f}"
         f" ms, bound {total['bound_ms']:.5f} ms "
-        f"({sum(f['bytes'] for f in figs)} bytes); slowest call "
+        f"({sum(f['bytes'] for f in figs)} bytes; every slot "
+        f"{total['bound_padded_ms']:.5f} ms); device {device_ms} ms; "
+        f"wrapper / launch alone {total['ms'] / total['kernel_ms']:.3f}; "
+        f"slowest call "
         f"{labels[slow]}; max abs err {max(errs):.3g}")
     return dict(name="spmv_block_ell", route="cuda",
                 source=KERNEL_ROWS["spmv_block_ell"][0],
@@ -748,6 +890,9 @@ def k3_row(launches, captured, labels, host, device_ms) -> dict:
                 plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
                 bound_by="bytes", library_ms=total["library_ms"],
                 kernel_ms=total["kernel_ms"], device_ms=device_ms,
+                bound_padded_ms=total["bound_padded_ms"],
+                lanes={lab: figs[labels.index(lab)]["lanes"]
+                       for lab in dict.fromkeys(labels)},
                 calls=len(figs),
                 slowest_call=dict(op=labels[slow], **figs[slow]))
 

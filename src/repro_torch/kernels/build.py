@@ -96,10 +96,17 @@ def kernel(library: str, symbol: str, argtypes: tuple):
 def launch(fn, device: torch.device, *args) -> None:
     """Call the bound entry point ``fn`` on ``device``'s current stream and
     raise if it reports a CUDA error (a refused launch never runs, and a
-    later synchronize would not report it)."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+    later synchronize would not report it).  The device is made current
+    only when it is not already, and the stream is read as a raw pointer:
+    the host time of a small kernel's call is mostly this wrapper's."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         raise RuntimeError(f"{fn.__name__} kernel launch failed with CUDA "
                            f"error {err}")

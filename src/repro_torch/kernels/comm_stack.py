@@ -4,8 +4,12 @@ K1, :func:`segment_reduce`
     Per-segment sum *and* maximum of float32 values keyed by int32 segment
     ids, in one pass (``csrc/segment_reduce.cu``).  The stack's transport
     sums, per-phase byte sums and the link-contention reduction all go
-    through it.  Plain version: :func:`segment_reduce_plain`
-    (``index_add_`` + ``scatter_reduce(..., "amax")``).
+    through it.  Runs of equal ids are folded within a lane and a warp, and
+    blocks keep their partial sums in shared-memory bins: every segment has
+    a bin when ``n_seg <= K1_BIN_CAP`` (the smem path), else a block bins
+    the window of ids its chunk spans (the global path, :func:`k1_path`).
+    Plain version: :func:`segment_reduce_plain` (``index_add_`` +
+    ``scatter_reduce(..., "amax")``).
 K2, :func:`queue_walk`
     The exact receive-queue walk: for every arrival of every receiver
     region, the 1-based position of its match in the still-unmatched posted
@@ -31,11 +35,13 @@ import torch
 from .build import build_kernels, kernel, launch  # noqa: F401
 
 #: Kernel launches per wrapper since the counts were last reset.
-LAUNCHES = {"segment_reduce": 0, "queue_walk": 0}
+LAUNCHES = {"segment_reduce": 0, "segment_reduce_smem": 0,
+            "segment_reduce_global": 0, "queue_walk": 0}
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "segment_reduce": (_P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P),
+    "segment_reduce": (_P, _P, ctypes.c_longlong, ctypes.c_int, _P,
+                       ctypes.c_int),
     "queue_walk": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int),
 }
 _INT32_MAX = 2 ** 31 - 1
@@ -50,6 +56,40 @@ def reset_launches() -> None:
 def _launch(name: str, device: torch.device, *args) -> None:
     launch(kernel(name, name, _ARGTYPES[name]), device, *args)
     LAUNCHES[name] += 1
+
+
+# K1's geometry, mirrored from ``csrc/segment_reduce.cu`` (kBinCap,
+# kThreads, kItems, kMinPerBlock, kMaxBlocks): keep the two in step.
+#: Shared-memory bins a K1 block holds.
+K1_BIN_CAP = 4096
+K1_THREADS = 256
+K1_ITEMS = 4
+K1_MIN_PER_BLOCK = 4096
+K1_MAX_BLOCKS = 132 * 4
+
+
+def k1_path(n_seg: int) -> str:
+    """K1's path for ``n_seg`` segments: ``"smem"`` when every segment has
+    a shared-memory bin in each block, else ``"global"`` (each block bins
+    the window of ids its chunk spans, when that fits, and sends its run
+    updates to global atomics otherwise)."""
+    return "smem" if int(n_seg) <= K1_BIN_CAP else "global"
+
+
+def k1_grid(n: int) -> tuple[int, int]:
+    """``(blocks, messages a block)`` of K1 on ``n`` messages, as
+    ``per_block_for`` in the ``.cu`` computes them: at least
+    ``K1_MIN_PER_BLOCK`` messages a block, at most ``K1_MAX_BLOCKS``
+    blocks, rounded up to whole block steps of ``K1_THREADS * K1_ITEMS``
+    messages (no blocks for ``n == 0``: K1 then only zeroes its
+    outputs)."""
+    step = K1_THREADS * K1_ITEMS
+    if n <= 0:
+        return 0, step
+    blocks = min(-(-n // K1_MIN_PER_BLOCK), K1_MAX_BLOCKS)
+    per = -(-n // blocks)                    # ceil(n / blocks) ...
+    per = -(-per // step) * step             # ... in whole block steps
+    return -(-n // per), per
 
 
 def _check(t, dtype, what: str) -> None:
@@ -96,9 +136,10 @@ def segment_reduce(values: torch.Tensor, ids: torch.Tensor,
     by ``ids`` (int32 ``[n]``, each in ``[0, n_seg)``), both float32
     ``[n_seg]``; an empty segment reports sum 0 and max 0.
 
-    On CUDA tensors this is one launch of K1, whose atomic sums are
-    float32-allclose (rtol 1e-4, atol 1e-6) to a sequential sum, not
-    bit-equal; on CPU tensors it is :func:`segment_reduce_plain`.
+    On CUDA tensors this is one call of K1 on the path :func:`k1_path`
+    picks, whose sums are float32-allclose (rtol 1e-4, atol 1e-6) to a
+    sequential sum, not bit-equal, and whose maxima are exact; on CPU
+    tensors it is :func:`segment_reduce_plain`.
     """
     _check(values, torch.float32, "values")
     _check(ids, torch.int32, "ids")
@@ -120,15 +161,24 @@ def segment_reduce(values: torch.Tensor, ids: torch.Tensor,
 
 
 def _segment_reduce_cuda(values: torch.Tensor, ids: torch.Tensor,
-                         n_seg: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1's launch on checked CUDA inputs (outputs allocated here)."""
-    sums = torch.empty(n_seg, dtype=torch.float32, device=values.device)
-    maxs = torch.empty(n_seg, dtype=torch.float32, device=values.device)
+                         n_seg: int, path: str | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's launch on checked CUDA inputs, on ``path`` (``None``: the one
+    :func:`k1_path` picks; ``"global"`` takes any ``n_seg``, ``"smem"``
+    only up to ``K1_BIN_CAP``).  One buffer holds the sums, the maxima and
+    the kernel's one scratch word; the two results are views of it."""
+    path = path or k1_path(n_seg)
+    if path not in ("smem", "global") or (path == "smem"
+                                          and n_seg > K1_BIN_CAP):
+        raise ValueError(f"K1 has no path {path!r} for {n_seg} segments")
+    out = torch.empty(2 * n_seg + 1, dtype=torch.float32,
+                      device=values.device)
     if n_seg:
         _launch("segment_reduce", values.device, values.data_ptr(),
-                ids.data_ptr(), values.numel(), n_seg, sums.data_ptr(),
-                maxs.data_ptr())
-    return sums, maxs
+                ids.data_ptr(), values.numel(), n_seg, out.data_ptr(),
+                int(path == "smem"))
+        LAUNCHES[f"segment_reduce_{path}"] += 1
+    return out[:n_seg], out[n_seg:2 * n_seg]
 
 
 # -- K2: Fenwick receive-queue walk ------------------------------------------------

@@ -200,11 +200,14 @@ class DeviceHierarchy:
         return cls(out, dev)
 
     def to(self, device) -> "DeviceHierarchy":
-        """The same hierarchy on ``device`` (``None`` means CUDA)."""
+        """The same hierarchy on ``device`` (``None`` means CUDA).  Each
+        operator's ``cols`` is range-checked once here
+        (:func:`~repro_torch.kernels.spmv_ell.move_ell`), so that the
+        V-cycle's SpMVs wait on no check."""
         dev = resolve_device(device)
 
         def move(op):
-            return None if op is None else tuple(t.to(dev) for t in op)
+            return None if op is None else ell.move_ell(*op, dev)
         return DeviceHierarchy(
             [DeviceLevel(lv.n, move(lv.A), lv.dinv.to(dev), move(lv.P),
                          move(lv.PT)) for lv in self.levels], dev)
