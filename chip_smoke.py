@@ -12,7 +12,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    versions on the card, on ragged shapes; K1 also on sorted runs, random
    ids and one hot segment below its shared-memory capacity and on sorted,
    random and short-run ids above it, each on the path the wrapper picks
-   and forced onto each path that applies; K4 also at hymba-1.5b's and
+   and forced onto each path that applies; K2 also on a region of 10,000
+   arrivals (five of its 2,048-word tiles) and on runs of empty regions;
+   K4 also at hymba-1.5b's and
    llama3.2-3b's full attention shapes in bf16 (timed beside SDPA), with
    every bf16 case counted on its tensor-core kernel; K5 also on ragged q
    and at hymba-1.5b's and mamba2-130m's full prefill shapes, every case
@@ -257,9 +259,27 @@ def kernel_parity(ks, dev) -> None:
             f"to the plain version")
     log(f"K1 parity: {cases} cases, max abs err {worst:.3g}, worst error "
         f"{rel:.3g} of the bound")
+    k2_parity(ks, dev, rng)
+
+
+def k2_layouts(rng):
+    """Region sizes of K2's parity phase: ragged random sizes, then a
+    region of 10,000 arrivals (five 2,048-word tiles of the kernel's
+    window; the plain lock-step walk takes one round an arrival, so this
+    is as long as the phase affords) and runs of empty regions between,
+    around and after non-empty ones, one of them longer than a block."""
     for n_regions, max_count in ((1, 1), (3, 0), (40, 25), (2, 2000),
                                  (50_000, 64)):
-        counts = rng.integers(0, max_count + 1, n_regions)
+        yield rng.integers(0, max_count + 1, n_regions)
+    yield np.array([3, 10_000, 0, 7])
+    runs = rng.integers(0, 40, 3000) * (rng.random(3000) < 0.3)
+    yield np.concatenate([[0] * 5, runs[:1500], [0] * 1500, runs[1500:],
+                          [0] * 9])
+
+
+def k2_parity(ks, dev, rng) -> None:
+    cases = 0
+    for counts in k2_layouts(rng):
         bounds = np.concatenate([[0], np.cumsum(counts)])
         posted = [rng.permutation(c) for c in counts]
         arrival = [rng.permutation(c) for c in counts]
@@ -268,7 +288,9 @@ def kernel_parity(ks, dev) -> None:
                                         ).to(dev)
                        for a in (posted, arrival)),
                  torch.from_numpy(bounds.astype(np.int64)).to(dev))
-    log("K2 parity: 5 region layouts, bit-equal")
+        cases += 1
+    log(f"K2 parity: {cases} region layouts (up to 10,000 arrivals a "
+        f"region, runs of empty regions), bit-equal")
 
 
 def k3_err(ell, blocks, cols, x, lanes=None) -> float:
@@ -717,28 +739,56 @@ def k1_call_figures(ks, values, ids, n_seg) -> dict:
         bound_ms=(8 * values.numel() + 8 * n_seg) / HBM_BYTES_PER_S * 1e3)
 
 
+def kernel_device_ms(fn, tag: str, reps: int):
+    """Mean device ms a call of the kernels whose name holds ``tag``, over
+    ``reps`` calls of ``fn`` under ``torch.profiler`` after a warm-up call;
+    None where the profiler saw no device time (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and tag in e.key)
+    return us / 1e3 / reps if us else None
+
+
 def k2_call_figures(ks, posted, arrival, bounds, clock_hz) -> dict:
     """CUDA-event times of one K2 call (wrapper with its layout ops, the
-    launch alone, the plain lock-step version) beside its bound: the
-    larger of its bytes (4 B in and 8 B out per arrival, 16 B per region),
-    its longest region's serial chain at one step per SM clock, and all
-    regions' steps over every INT32 lane of the card."""
+    launch alone, the plain lock-step version) and the kernel's device time
+    under the profiler, beside its bound: the larger of its bytes (4 B in
+    and 8 B out per arrival, 16 B per region), its longest region's serial
+    chain at one step per SM clock, and all regions' steps over every INT32
+    lane of the card; and the region sizes (mean, p99, max) and the
+    compares the kernel makes (c (c - 1) / 2 a region of c arrivals)."""
     N, R = posted.numel(), bounds.numel() - 1
+    # the chain terms count the Fenwick walk (K2 up to PR 17: tree build and
+    # prefix and removal chains) at one step per clock; the bound is kept as
+    # it was so the row compares with earlier ones
     chain, total = k2_chain_ops(ks, posted, arrival, bounds)
-    layout = ks._queue_layout(posted, arrival, bounds)
+    b, starts = ks._queue_layout(posted, arrival, bounds)[:2]
     t_bytes = (4 * N + 16 * R + 8 * N) / HBM_BYTES_PER_S
     t_chain = chain / clock_hz
     t_total = total / (INT32_LANES_PER_SM * SMS * clock_hz)
-    counts = bounds[1:] - bounds[:-1]
+    counts = (bounds[1:] - bounds[:-1]).double()
     return dict(
         ms=cuda_ms(lambda: ks.queue_walk(posted, arrival, bounds), 10),
-        kernel_ms=cuda_ms(lambda: ks._queue_walk_cuda(*layout), 10),
+        kernel_ms=cuda_ms(lambda: ks._queue_walk_cuda(b, starts), 10),
+        device_ms=kernel_device_ms(lambda: ks._queue_walk_cuda(b, starts),
+                                   "count_earlier_smaller", 10),
         plain_ms=cuda_ms(lambda: ks.queue_walk_plain(posted, arrival, bounds),
                          2),
         bound_ms=max(t_bytes, t_chain, t_total) * 1e3,
         bound_by="bytes" if t_bytes >= max(t_chain, t_total) else
         "operations",
         arrivals=N, regions=R, longest=int(counts.max()) if R else 0,
+        compares=float((counts * (counts - 1) / 2).sum()),
+        mean_region=float(counts.mean()) if R else 0.0,
+        p99_region=float(torch.quantile(counts, 0.99)) if R else 0.0,
         chain_steps=chain, all_steps=total)
 
 
@@ -782,13 +832,17 @@ def kernel_rows(ks, launches, captured, clock_hz):
     figs = [k2_call_figures(ks, *c, clock_hz) for c in calls]
     for f in figs:
         log(f"K2 full-width call: {f['arrivals']} arrivals in {f['regions']} "
-            f"regions, longest region {f['longest']} arrivals, serial chain "
-            f"{f['chain_steps']} steps, all regions {f['all_steps']} steps; "
-            f"wrapper {f['ms']:.4f} ms, launch alone {f['kernel_ms']:.4f} ms, "
-            f"plain {f['plain_ms']:.4f} ms, bound {f['bound_ms']:.5f} ms "
-            f"({f['bound_by']}); bit-equal")
+            f"regions (arrivals a region: mean {f['mean_region']:.4f}, p99 "
+            f"{f['p99_region']:.4f}, max {f['longest']}; {f['compares']:.0f} "
+            f"compares), Fenwick serial "
+            f"chain {f['chain_steps']} steps, all regions {f['all_steps']} "
+            f"steps; wrapper {f['ms']:.4f} ms, launch alone "
+            f"{f['kernel_ms']:.4f} ms, device {f['device_ms']} ms "
+            f"(profiler), plain {f['plain_ms']:.4f} ms, bound "
+            f"{f['bound_ms']:.5f} ms ({f['bound_by']}); bit-equal")
     total = {k: sum(f[k] for f in figs) for k in
              ("ms", "kernel_ms", "plain_ms", "bound_ms")}
+    dev = [f["device_ms"] for f in figs]
     slow = max(range(len(calls)), key=lambda k: figs[k]["kernel_ms"])
     rows.append(dict(name="queue_walk", route="cuda",
                      source=KERNEL_ROWS["queue_walk"][0],
@@ -797,7 +851,9 @@ def kernel_rows(ks, launches, captured, clock_hz):
                      ms=total["ms"], plain_ms=total["plain_ms"],
                      bound_ms=total["bound_ms"],
                      bound_by=figs[slow]["bound_by"], library_ms=None,
-                     kernel_ms=total["kernel_ms"], calls=len(calls),
+                     kernel_ms=total["kernel_ms"],
+                     device_ms=None if None in dev else sum(dev),
+                     calls=len(calls),
                      slowest_call=figs[slow]))
     return rows
 

@@ -13,8 +13,11 @@ K1, :func:`segment_reduce`
 K2, :func:`queue_walk`
     The exact receive-queue walk: for every arrival of every receiver
     region, the 1-based position of its match in the still-unmatched posted
-    queue (``csrc/queue_walk.cu``, one thread per region).  Plain version:
-    :func:`queue_walk_plain`, the lock-step Fenwick rounds in torch ops.
+    queue (``csrc/queue_walk.cu``).  One thread an arrival counts the
+    earlier arrivals of its region that matched a smaller posted slot, from
+    its block's window of slots staged in shared memory; no tree, no serial
+    chain.  Plain version: :func:`queue_walk_plain`, the lock-step Fenwick
+    rounds in torch ops, an independent algorithm.
 
 Each wrapper checks device, dtype, shape, contiguity and index ranges and
 raises on anything else.  A tensor on the CPU takes the plain version; a
@@ -42,7 +45,7 @@ _P = ctypes.c_void_p
 _ARGTYPES = {
     "segment_reduce": (_P, _P, ctypes.c_longlong, ctypes.c_int, _P,
                        ctypes.c_int),
-    "queue_walk": (_P, _P, _P, _P, _P, _P, _P, ctypes.c_int),
+    "queue_walk": (_P, _P, ctypes.c_int, ctypes.c_int, _P),
 }
 _INT32_MAX = 2 ** 31 - 1
 
@@ -181,7 +184,14 @@ def _segment_reduce_cuda(values: torch.Tensor, ids: torch.Tensor,
     return out[:n_seg], out[n_seg:2 * n_seg]
 
 
-# -- K2: Fenwick receive-queue walk ------------------------------------------------
+# -- K2: receive-queue walk ------------------------------------------------------
+
+# K2's geometry, mirrored from ``csrc/queue_walk.cu`` (kThreads, kTile): keep
+# the two in step.  One thread an arrival, K2_THREADS a block; a block's
+# window of posted slots goes through shared memory K2_TILE words at a time.
+K2_THREADS = 256
+K2_TILE = 2048
+
 
 def _queue_layout(posted: torch.Tensor, arrival: torch.Tensor,
                   bounds: torch.Tensor):
@@ -301,18 +311,18 @@ def queue_walk(posted: torch.Tensor, arrival: torch.Tensor,
                          "int32 indexing")
     if posted.device.type == "cpu":
         return _queue_walk_lockstep(*layout)
-    return _queue_walk_cuda(*layout)
+    return _queue_walk_cuda(*layout[:2])
 
 
-def _queue_walk_cuda(b, starts, counts, toff, span,
-                     tree_len: int) -> torch.Tensor:
-    """K2's launch on a checked CUDA layout (:func:`_queue_layout`); the
-    tree scratch and the steps are allocated here."""
+def _queue_walk_cuda(b: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """K2's launch on a checked CUDA layout: ``b`` and ``starts`` of
+    :func:`_queue_layout`, contiguous int64 with every value below 2^31,
+    read as they are (the kernel narrows them to int32).  Arrival ``j`` of
+    a region gets ``b[j] + 1`` minus the count of its region's earlier
+    arrivals with a smaller ``b``; only the steps are allocated here, no
+    scratch."""
     steps = torch.empty(b.numel(), dtype=torch.int64, device=b.device)
     if b.numel():
-        tree = torch.empty(tree_len, dtype=torch.int32, device=b.device)
-        i32 = [t.to(torch.int32).contiguous()
-               for t in (b, starts, counts, toff, span)]
-        _launch("queue_walk", b.device, *(t.data_ptr() for t in i32),
-                tree.data_ptr(), steps.data_ptr(), counts.numel())
+        _launch("queue_walk", b.device, b.data_ptr(), starts.data_ptr(),
+                b.numel(), starts.numel(), steps.data_ptr())
     return steps
