@@ -39,11 +39,27 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``torch.cuda.set_sync_debug_mode("error")`` (no SpMV waits for the
    device), held to the same cycle on cpu, then 10 cycles with the
    relative residual computed on the host in float64;
-6. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
+6. the paper's measurements: Figs. 2-9 and Table 1 as
+   ``benchmarks/bench_paper.py`` computes them (ping-pong sweeps of every
+   Blue Waters locality against node-aware and flat ``message_time``,
+   ``fit_alpha_beta`` and ``fit_RN``, the HighVolumePingPong and
+   ``fit_gamma``, the Gemini line and ``fit_delta``) on cuda and on cpu —
+   fitted values within 1e-4, queue steps bit-equal; then Figs. 10-11 at
+   full width: the SpMV and SpGEMM (``A_l P_{l+1}``) traffic of every
+   level of the phase-4 hierarchy with random arrivals, priced by one
+   ``simulate_many`` and one ``model_ladder_many`` call per operation on
+   cuda with K1's and K2's counts set to 0 just before and every K1/K2
+   input captured and held to its plain version, the whole run held to
+   the same run on cpu (steps bit-equal, totals within 1e-4); each level's
+   measured time and five ladder rungs and the three derived rows;
+   ``simulate`` and ``phase_cost_phase`` of level 0's SpMV against the
+   stacked row; one per-phase ``simulate`` and one batched
+   ``pingpong_sweep`` timed; the run's launches on a line of their own;
+7. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
    width cut to 2 layers, float32 weights, one 256-token prompt, ``prefill``
    then 8 greedy ``decode_step`` calls on cuda and on cpu — logits within
    1e-4 relative L2, the same tokens;
-7. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
+8. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
    random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
    tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
    and K5's counts set to 0 just before (32 launches each, one a layer, all
@@ -53,7 +69,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    memory and the device busy share of a profiled prefill; then
    ``ServeEngine`` at full width (4 slots, 6 seeded requests of 2-7 prompt
    tokens, 8 new tokens each);
-8. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs,
+9. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs,
    worst error against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
    yardstick, each summed over every call the full-width run made, beside
@@ -63,7 +79,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    its ``path`` ("wgmma"), its TFLOP/s launch alone and ``vs_library``
    (launch alone over SDPA), K5's its ``path`` ("mma.sync 3xTF32"), and
    both their ``tc_launches``;
-9. the card's name and power limit as ``nvidia-smi`` reports them, then,
+10. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -685,6 +701,305 @@ def device_share(fn) -> list:
     for us, count, key in sorted(rows, reverse=True)[:10]:
         log(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     return rows
+
+
+# -- phase 6: the paper's measurements ------------------------------------------
+
+def paper_fits(device) -> dict:
+    """Figs. 2-9 and Table 1 as ``benchmarks/bench_paper.py`` computes them,
+    through the port's harnesses and fits on ``device``: the fitted values,
+    the derived rows, every queue step of the queue and contention tests,
+    and the wall of each harness call."""
+    from repro_torch.core import fitting
+    from repro_torch.core.models import message_time
+    from repro_torch.core.params import PROTOCOL_NAMES
+    from repro_torch.core.topology import contention_ell
+    from repro_torch.net import pingpong
+    from repro_torch.net.machine import blue_waters_machine
+
+    m = blue_waters_machine((2, 1, 1))
+    gt = m.params
+    fits, derived, steps, walls = {}, {}, [], {}
+
+    def call(label, fn):
+        out, walls[label] = sync_time(fn)
+        return out
+
+    # Figs. 2-3: ping-pong sweeps against node-aware and flat message_time
+    sizes = np.unique(np.round(np.logspace(0, 6, 40)).astype(int))
+    errs_na, errs_flat = [], []
+    for li, kind in enumerate(gt.locality_names):
+        meas = call(f"pingpong_sweep {kind}", lambda: pingpong.pingpong_sweep(
+            m, kind, sizes, reps=2, noise=0.0, device=device))
+        loc = np.full(sizes.shape, li)
+        for errs, node_aware in ((errs_na, True), (errs_flat, False)):
+            pred = message_time(gt, sizes, loc, node_aware=node_aware,
+                                device=device).double().cpu().numpy()
+            errs.append(np.abs(pred - meas) / meas)
+    derived["fig2_flat_model_relerr"] = float(np.mean(np.concatenate(
+        errs_flat)))
+    derived["fig3_node_aware_relerr"] = float(np.mean(np.concatenate(
+        errs_na)))
+    # Table 1: (alpha, R_b) per locality and protocol, then R_N
+    sizes = np.unique(np.round(np.logspace(0, 6, 48)).astype(int))
+    worst = 0.0
+    for li, kind in enumerate(gt.locality_names):
+        meas = call(f"table1 pingpong_sweep {kind}",
+                    lambda: pingpong.pingpong_sweep(m, kind, sizes, reps=2,
+                                                    noise=0.0, device=device))
+        fit = fitting.fit_alpha_beta(sizes, meas, gt)
+        for pi, proto in enumerate(PROTOCOL_NAMES):
+            a, rb = fit[proto]
+            fits[f"alpha {kind} {proto}"], fits[f"Rb {kind} {proto}"] = a, rb
+            worst = max(worst, abs(a - gt.alpha[li, pi]) / gt.alpha[li, pi],
+                        abs(rb - gt.Rb[li, pi]) / gt.Rb[li, pi])
+    ks_, ts = call("ppn_sweep", lambda: pingpong.ppn_sweep(m, 1e6,
+                                                           device=device))
+    fits["RN"] = fitting.fit_RN(ks_, ts, 1e6, gt.alpha[2, 2], gt.Rb[2, 2])
+    derived["table1_fit_worst_param_relerr"] = float(max(
+        worst, abs(fits["RN"] - 6.6e9) / 6.6e9))
+    # Figs. 4-5: HighVolumePingPong, reversed against same order; gamma
+    ns = np.array([100, 300, 1000, 3000])
+    meas, base = [], []
+    for n in ns:
+        s = (1 << 22) // n
+        for order, into in (("reversed", meas), ("same", base)):
+            t, r1, r2 = call(f"high_volume_pingpong n={n} {order}",
+                             lambda: pingpong.high_volume_pingpong(
+                                 m, [(0, 32)], int(n), s, order=order,
+                                 device=device))
+            into.append(t)
+            steps += [r1.per_proc_queue_steps, r2.per_proc_queue_steps]
+    fits["gamma"] = fitting.fit_gamma(ns, np.array(meas), np.array(base))
+    derived["fig5_gamma_fit_ratio"] = fits["gamma"] / gt.gamma
+    # Figs. 7-9: the Gemini line; delta
+    m4 = blue_waters_machine((4, 1, 1))
+    ells, meas, base = [], [], []
+    for n, s in [(1, 1e6), (4, 2.5e5), (16, 62500), (4, 1e6)]:
+        tot, r1, r2 = call(f"contention_line_test n={n} size={s:g}",
+                           lambda: pingpong.contention_line_test(
+                               m4, n, s, device=device))
+        base.append(r1.transport + r1.queue + r2.transport + r2.queue)
+        meas.append(tot)
+        steps += [r1.per_proc_queue_steps, r2.per_proc_queue_steps]
+        ells.append(2 * contention_ell(4, 1, 2 * n * s * 32 / (32 * 4), 32)
+                    / 2)
+    fits["delta"] = fitting.fit_delta(np.array(ells), np.array(meas),
+                                      np.array(base))
+    derived["fig9_delta_fit_ratio"] = fits["delta"] / m4.params.delta
+    return dict(fits=fits, derived=derived,
+                steps=[s.cpu() for s in steps], walls=walls)
+
+
+def amg_tagged(levels, op: str, machine):
+    """(level, bound phase) of one operation over the hierarchy, as
+    ``benchmarks/bench_paper._amg_phases`` makes them: each level over
+    ``min(max_ranks, rows // 2)`` ranks, empty patterns skipped."""
+    from repro_torch.sparse.partition import (RowPartition,
+                                              spgemm_comm_pattern,
+                                              spmv_comm_pattern)
+    out = []
+    for li, lvl in enumerate(levels):
+        part = RowPartition.balanced(
+            lvl.A.n_rows, min(FULL["max_ranks"], max(lvl.A.n_rows // 2, 2)))
+        if op == "spmv":
+            cp = spmv_comm_pattern(lvl.A, part)
+        elif li + 1 < len(levels):
+            cp = spgemm_comm_pattern(lvl.A, levels[li + 1].P, part)
+        else:
+            break
+        if cp.n_msgs:
+            out.append((li, cp.bind(machine)))
+    return out
+
+
+def price_fig10_11(phases, arrivals, device) -> dict:
+    """One ``simulate_many`` and one ``model_ladder_many`` call over an
+    operation's phases on ``device``, each timed."""
+    from repro_torch.core.models import MODEL_LEVELS, model_ladder_many
+    from repro_torch.net.simulator import simulate_many
+
+    sims, t_sim = sync_time(lambda: simulate_many(
+        phases, arrival_orders=arrivals, device=device))
+    ladders, t_lad = sync_time(lambda: model_ladder_many(phases,
+                                                         device=device))
+    meas = np.array([r.time for r in sims])
+    mod = {lvl: np.array([lad[lvl].total for lad in ladders])
+           for lvl in MODEL_LEVELS}
+    return dict(sims=sims, measured=meas, ladder=mod, t_sim=t_sim,
+                t_ladder=t_lad,
+                steps=[r.per_proc_queue_steps.cpu() for r in sims],
+                underprediction=float(np.max((meas - mod["node_aware"])
+                                             / meas)),
+                plus_queue_relerr=float(np.mean(np.abs(mod["queue"] - meas)
+                                                / meas)),
+                queue_contention_share=float(np.max(1.0 - mod["node_aware"]
+                                                    / meas)))
+
+
+def same_steps(got, want, what: str) -> None:
+    if len(got) != len(want) or not all(torch.equal(g, w)
+                                        for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: queue steps differ between cuda and "
+                             "cpu")
+
+
+def paper_measurements(ks, levels, card=None) -> dict:
+    """The paper's Sections 3-5 on the card: Figs. 2-9 and Table 1 on cuda
+    and cpu, fits equal; Figs. 10-11 at full width with K1's and K2's
+    counts set to 0 just before and every K1/K2 input captured, each held
+    to its plain version, the whole run held to the same run on cpu; the
+    per-phase entries against the stacked rows; one per-phase call and one
+    batched sweep timed.  ``card`` is the device under test (``None`` =
+    CUDA).  Returns the launch counts of the Figs. 10-11 run."""
+    from repro_torch.core.models import MODEL_LEVELS, phase_cost_phase
+    from repro_torch.net import pingpong
+    from repro_torch.net.machine import blue_waters_machine
+    from repro_torch.net.simulator import simulate
+
+    ks.reset_launches()
+    gpu, t_gpu = sync_time(lambda: paper_fits(card))
+    fit_launches = dict(ks.LAUNCHES)
+    cpu, t_cpu = sync_time(lambda: paper_fits("cpu"))
+    for k, want in cpu["fits"].items():
+        np.testing.assert_allclose(gpu["fits"][k], want, rtol=RTOL,
+                                   err_msg=f"fit {k}: cuda vs cpu")
+    same_steps(gpu["steps"], cpu["steps"], "Figs. 4-9")
+    if not all(n > 0 for n in (fit_launches["segment_reduce"],
+                               fit_launches["queue_walk"])):
+        raise AssertionError(f"Figs. 2-9 did not reach K1 and K2: "
+                             f"{fit_launches}")
+    log(f"paper Figs. 2-9 and Table 1: cuda {t_gpu:.3f} s, cpu {t_cpu:.3f} "
+        f"s; {len(cpu['fits'])} fitted values within rtol {RTOL}, "
+        f"{len(cpu['steps'])} queue-step rows bit-equal; launches "
+        f"{fit_launches}")
+    for k, v in gpu["derived"].items():
+        log(f"  {k} {v!r} (cpu {cpu['derived'][k]!r})")
+    log("  fits: " + ", ".join(f"{k} {v:.6g}" for k, v in gpu["fits"].items()))
+    log("  walls on cuda (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in gpu["walls"].items()))
+
+    m = blue_waters_machine(FULL["torus"])
+    captured = {name: [] for name in ("segment_reduce", "queue_walk")}
+    real = {name: getattr(ks, name) for name in captured}
+
+    def spy(name):
+        def call(*args):
+            captured[name].append(args)
+            return real[name](*args)
+        return call
+
+    runs = {}
+    for op in ("spmv", "spgemm"):
+        (tagged, t_bind) = sync_time(lambda: amg_tagged(levels, op, m))
+        phases = [ph for _, ph in tagged]
+        arrivals, t_arr = sync_time(lambda: [
+            ph.random_arrival_order(np.random.default_rng(0))
+            for ph in phases])
+        for name in real:
+            setattr(ks, name, spy(name))
+        try:
+            ks.reset_launches()
+            g = price_fig10_11(phases, arrivals, card)
+            launches = dict(ks.LAUNCHES)
+        finally:
+            for name, fn in real.items():
+                setattr(ks, name, fn)
+        c = price_fig10_11(phases, arrivals, "cpu")
+        same_steps(g["steps"], c["steps"], f"Figs. 10-11 {op}")
+        for k in ("measured", *MODEL_LEVELS):
+            w = c["measured"] if k == "measured" else c["ladder"][k]
+            v = g["measured"] if k == "measured" else g["ladder"][k]
+            np.testing.assert_allclose(v, w, rtol=RTOL, atol=ATOL,
+                                       err_msg=f"Figs. 10-11 {op} {k}")
+        for k in ("underprediction", "plus_queue_relerr",
+                  "queue_contention_share"):
+            np.testing.assert_allclose(g[k], c[k], rtol=RTOL,
+                                       err_msg=f"Figs. 10-11 {op} {k}")
+        if not (launches["segment_reduce"] and launches["queue_walk"]):
+            raise AssertionError(f"Figs. 10-11 {op} did not reach K1 and "
+                                 f"K2: {launches}")
+        if not all(np.isfinite(g["measured"])) or min(g["measured"]) <= 0:
+            raise AssertionError(f"Figs. 10-11 {op}: bad measured times")
+        runs[op] = dict(tagged=tagged, arrivals=arrivals, gpu=g,
+                        launches=launches)
+        log(f"paper Fig. {10 if op == 'spmv' else 11} ({op}) at full width: "
+            f"{len(phases)} phases, {sum(p.n_msgs for p in phases)} messages"
+            f"; bind {t_bind:.3f} s, arrivals {t_arr:.3f} s (host); "
+            f"simulate_many cuda {g['t_sim']:.3f} s (cpu {c['t_sim']:.3f} s)"
+            f", model_ladder_many cuda {g['t_ladder']:.3f} s (cpu "
+            f"{c['t_ladder']:.3f} s); launches {launches}; steps bit-equal, "
+            f"totals within rtol {RTOL} of cpu")
+        for (li, ph), meas, *rungs in zip(
+                tagged, g["measured"], *(g["ladder"][k]
+                                         for k in MODEL_LEVELS)):
+            log(f"  level {li}: {ph.n_procs} ranks, {ph.n_msgs} msgs, max "
+                f"{ph.max_msgs_per_proc()} a rank; measured {meas:.6g} s; "
+                + ", ".join(f"{k} {v:.6g}" for k, v in zip(MODEL_LEVELS,
+                                                           rungs)))
+        log(f"  fig10_11_{op}_node_aware_underprediction "
+            f"{g['underprediction']!r}, fig10_11_{op}_plus_queue_relerr "
+            f"{g['plus_queue_relerr']!r}, fig10_11_{op}_queue_contention_"
+            f"share {g['queue_contention_share']!r}")
+        if op == "spmv":      # the device's share of one operation's pricing
+            device_share(lambda: price_fig10_11(phases, arrivals, card))
+
+    # every K1 and K2 call of the full-width run against its plain version
+    k1 = [k1_err(ks, *c) for c in captured["segment_reduce"]]
+    k2 = [k2_check(ks, *c) for c in captured["queue_walk"]]
+    log(f"paper Figs. 10-11 kernel calls: K1 {len(k1)} held to its plain "
+        f"version (max abs err {max(e for e, _ in k1):.3g}, worst "
+        f"{max(r for _, r in k1):.3g} of the bound), K2 {len(k2)} bit-equal "
+        f"({sum(c[0].numel() for c in captured['queue_walk'])} arrivals)")
+
+    # the per-phase entries against row 0 of the stacked results
+    spmv = runs["spmv"]
+    ph, arr, row = spmv["tagged"][0][1], spmv["arrivals"][0], \
+        spmv["gpu"]["sims"][0]
+    one = simulate(ph, arrival_order=arr, device=card)
+    if not torch.equal(one.per_proc_queue_steps, row.per_proc_queue_steps):
+        raise AssertionError("simulate(level 0 SpMV) steps differ from the "
+                             "stacked row")
+    for f in ("time", "transport", "queue", "contention", "max_link_bytes"):
+        np.testing.assert_allclose(getattr(one, f), getattr(row, f),
+                                   rtol=RTOL, err_msg=f"simulate {f}")
+    cost = phase_cost_phase(ph, device=card)
+    np.testing.assert_allclose(cost.total,
+                               spmv["gpu"]["ladder"]["contention"][0],
+                               rtol=RTOL, err_msg="phase_cost_phase")
+    log(f"paper per-phase: simulate(level 0 SpMV) time {one.time:.6g} s "
+        f"equals the stacked row's {row.time:.6g} s (steps bit-equal), "
+        f"phase_cost_phase {cost.total:.6g} s equals "
+        f"{spmv['gpu']['ladder']['contention'][0]:.6g} s")
+
+    # one per-phase call alone, and a sweep batched against one call a ping
+    bw = blue_waters_machine((2, 1, 1))
+    ping = pingpong._ping(bw, 0, 32, 4096.0)
+    ping_ms = cuda_ms(lambda: simulate(ping, device=card), 20)
+    ping_dev = kernel_device_ms(lambda: simulate(ping, device=card), "", 20)
+    big_ms = cuda_ms(lambda: simulate(ph, arrival_order=arr, device=card), 2)
+    big_dev = kernel_device_ms(
+        lambda: simulate(ph, arrival_order=arr, device=card), "", 2)
+    sizes = np.unique(np.round(np.logspace(0, 6, 40)).astype(int))
+    batched, t_batched = sync_time(lambda: pingpong.pingpong_sweep(
+        bw, "inter_node", sizes, reps=2, noise=0.0, device=card))
+    a, b = pingpong._pair_for(bw, "inter_node")
+
+    def one_call_a_ping():
+        return [np.mean([0.5 * (
+            simulate(pingpong._ping(bw, a, b, s), device=card).time
+            + simulate(pingpong._ping(bw, b, a, s), device=card).time)
+            for _ in range(2)]) for s in map(float, sizes)]
+
+    looped, t_looped = sync_time(one_call_a_ping)
+    np.testing.assert_allclose(batched, looped, rtol=RTOL)
+    log(f"paper timing: simulate of one ping {ping_ms:.4f} ms wrapper "
+        f"(CUDA events), {ping_dev} ms device (profiler); simulate of level "
+        f"0's SpMV with random arrivals {big_ms:.3f} ms wrapper, {big_dev} "
+        f"ms device; pingpong_sweep of {2 * 2 * sizes.size} pings batched "
+        f"{t_batched:.4f} s against {t_looped:.4f} s one simulate call a "
+        f"ping (equal times)")
+    return {op: r["launches"] for op, r in runs.items()}
 
 
 # -- phase 5: kernel figures ------------------------------------------------
@@ -1463,11 +1778,14 @@ def main() -> int:
     small_vcycle(small_slice())
     launches, captured, levels = full_slice(ks)
     k3_run = full_vcycle(levels)
+    paper_launches = paper_measurements(ks, levels)
     small_model()
     model_run = full_model()
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
     rows.append(k3_row(*k3_run))
     rows.extend(model_kernel_rows(*model_run))
+    log(f"paper measurements launches (Figs. 10-11 at full width): "
+        f"{paper_launches}")
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,13 @@
 Re-exports the names of ``repro.comm``'s ``__all__`` that the port defines
 in the same submodules.  The rest waits for its ROADMAP item: delta
 re-pricing (1), payload accounting (3), fault injection and the health
-ledger (8), the per-phase sums (9) and typed validation (10).
+ledger (8).
 """
+from .guard import (PatternError, MessageSizeError, RankError,
+                    ArenaOverflowError, validate_messages, validate_phase)
 from .phase import CommPhase
 from .primitives import (active_senders_per_node, transport_times,
-                         group_by_receiver, sum_by_pairs, segmented_arange,
+                         per_proc_sums, group_by_receiver, sum_by_pairs, segmented_arange,
                          grouped_queue_steps, queue_traversal_steps,
                          batched_queue_traversal_steps)
 from .stack import PhaseStack, StackSimArrays
@@ -18,7 +20,7 @@ from .strategies import (STRATEGIES, GPU_STRATEGIES, StrategyPlan,
 
 __all__ = [
     "CommPhase", "PhaseStack", "StackSimArrays",
-    "active_senders_per_node", "transport_times",
+    "active_senders_per_node", "transport_times", "per_proc_sums",
     "group_by_receiver", "sum_by_pairs", "segmented_arange",
     "grouped_queue_steps",
     "queue_traversal_steps", "batched_queue_traversal_steps",
@@ -26,4 +28,6 @@ __all__ = [
     "strategies_for",
     "standard", "two_step", "three_step", "host_staged", "device_direct",
     "rewrite", "best_strategy", "best_strategy_many",
+    "PatternError", "MessageSizeError", "RankError", "ArenaOverflowError",
+    "validate_messages", "validate_phase",
 ]

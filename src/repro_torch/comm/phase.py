@@ -20,7 +20,11 @@ import functools
 from typing import Any
 
 import numpy as np
+import torch
 
+from repro_torch.device import resolve_device
+
+from .guard import validate_messages
 from .primitives import active_senders_per_node, group_by_receiver
 
 
@@ -44,7 +48,7 @@ class CommPhase:
 
     @classmethod
     def build(cls, machine, src, dst, size, n_procs: int | None = None,
-              loc=None) -> "CommPhase":
+              loc=None, validate: bool = False) -> "CommPhase":
         """Bind a message set ``(src, dst, size)`` to ``machine``.
 
         Computes every derived per-message array (locality, protocol,
@@ -54,7 +58,20 @@ class CommPhase:
         classification with an explicit class index (scalar or per-message
         array) — how the GPU-aware strategy rewrites mark staged phases
         whose class is a routing decision, not a pair geometry.
+
+        ``validate=True`` runs the typed input-validation layer
+        (:func:`repro_torch.comm.guard.validate_messages`) first: NaN /
+        negative sizes, out-of-range or non-integral ranks and ranks past
+        int32 raise a precise :class:`repro_torch.comm.guard.PatternError`
+        subclass before any derived array is computed.
         """
+        if validate:
+            # the raveled raw inputs: the int64/float64 casts below would
+            # silently truncate NaN ranks and mask length mismatches
+            validate_messages(np.asarray(src).ravel(),
+                              np.asarray(dst).ravel(),
+                              np.asarray(size).ravel(), n_procs=n_procs,
+                              where="CommPhase.build")
         src = np.asarray(src, dtype=np.int64).ravel()
         dst = np.asarray(dst, dtype=np.int64).ravel()
         size = np.asarray(size, dtype=np.float64).ravel()
@@ -89,6 +106,30 @@ class CommPhase:
     def n_msgs(self) -> int:
         return int(self.src.size)
 
+    @property
+    def total_bytes(self) -> float:
+        return float(self.size.sum())
+
+    @property
+    def net_bytes(self) -> float:
+        return float(self.size[self.is_net].sum())
+
+    def recv_counts(self) -> np.ndarray:
+        """Messages received per process (``[n_procs]`` counts)."""
+        return np.bincount(self.dst, minlength=self.n_procs)
+
+    def max_msgs_per_proc(self) -> int:
+        """Worst per-process receive count (the queue model's ``n``)."""
+        if self.n_msgs == 0:
+            return 0
+        return int(self.recv_counts().max())
+
+    def class_bytes(self) -> np.ndarray:
+        """Payload bytes per locality class (``[n_locality]``): how much
+        traffic rides each rate-table row."""
+        return np.bincount(self.loc, weights=self.size,
+                           minlength=self.machine.params.n_locality)
+
     # -- receive-queue accounting -------------------------------------------
     @functools.cached_property
     def _receiver_groups(self) -> tuple[np.ndarray, np.ndarray]:
@@ -99,6 +140,28 @@ class CommPhase:
     def receiver_groups(self) -> tuple[np.ndarray, np.ndarray]:
         """(order, bounds): message indices grouped by receiving process."""
         return self._receiver_groups
+
+    def queue_steps(self, recv_post_order=None, arrival_order=None,
+                    device=None) -> torch.Tensor:
+        """Exact per-process receive-queue traversal-step totals (int64
+        ``[n_procs]`` on ``device``, ``None`` = CUDA).
+
+        ``recv_post_order[p]`` / ``arrival_order[p]``: permutations of the
+        message indices destined to ``p``, giving the order receives are
+        posted and envelopes arrive (dicts, or the flat form of
+        :func:`repro_torch.comm.primitives.flat_orders`).  Default is array
+        order for both (one step per arrival); receivers with a custom
+        order pay the exact walk, all of them in one launch of K2 through
+        a one-phase :class:`~repro_torch.comm.stack.PhaseStack`.
+        """
+        from .stack import PhaseStack
+        if self.n_msgs == 0:
+            return torch.zeros(self.n_procs, dtype=torch.int64,
+                               device=resolve_device(device))
+        wrap = (lambda o: None if o is None else [o])
+        steps = PhaseStack.build([self], device=device).queue_steps_many(
+            wrap(recv_post_order), wrap(arrival_order))
+        return steps[0, :self.n_procs]
 
     def random_arrival_flat(self, rng: np.random.Generator
                             ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -120,6 +183,14 @@ class CommPhase:
         starts = np.nonzero(np.r_[True, dst_sorted[1:] != dst_sorted[:-1]])[0]
         lens = np.diff(np.r_[starts, dst_sorted.size])
         return dst_sorted[starts], lens, perm
+
+    def random_arrival_order(self, rng: np.random.Generator
+                             ) -> dict[int, np.ndarray]:
+        """Dict view of :meth:`random_arrival_flat` (receiver ->
+        permutation), drawn from the same ``rng`` stream."""
+        slots, lens, perm = self.random_arrival_flat(rng)
+        return {int(s): ids
+                for s, ids in zip(slots, np.split(perm, np.cumsum(lens)[:-1]))}
 
     # -- link contention ----------------------------------------------------
     def link_contention(self, device=None) -> tuple[float, float]:

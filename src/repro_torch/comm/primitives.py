@@ -9,8 +9,8 @@ Port note: the host-side pieces stay numpy — active-sender counts at
 ``CommPhase.build``, the aggregation idioms the strategy rewrites are built
 from (:func:`sum_by_pairs`, :func:`segmented_arange`), and the assembly and
 validation of receive orders (:func:`flat_orders`, :func:`_assemble_orders`).
-:func:`transport_times` runs on device tensors, and
-:func:`grouped_queue_steps` hands the assembled walk to kernel K2
+:func:`transport_times` runs on device tensors, :func:`per_proc_sums` is
+kernel K1's sums, and :func:`grouped_queue_steps` hands the assembled walk to kernel K2
 (:func:`repro_torch.kernels.comm_stack.queue_walk`) on the caller's device.
 """
 from __future__ import annotations
@@ -76,6 +76,17 @@ def transport_times(size: torch.Tensor, alpha: torch.Tensor,
     eff = torch.where(is_net, eff.clamp_min(1.0), torch.ones_like(eff))
     rate = torch.minimum(RN, eff * Rb)
     return alpha + eff * size / rate
+
+
+def per_proc_sums(idx: torch.Tensor, values: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """Sum ``values`` into ``n`` bins by ``idx`` (send-side transport sums),
+    as float32 ``[n]`` on the inputs' device: K1's sums
+    (:func:`repro_torch.kernels.comm_stack.segment_reduce`), which take
+    the plain version only for tensors on the CPU."""
+    sums, _ = ks.segment_reduce(values.to(torch.float32).contiguous(),
+                                idx.to(torch.int32).contiguous(), n)
+    return sums
 
 
 def sum_by_pairs(a, b, w) -> tuple[np.ndarray, np.ndarray, np.ndarray]:

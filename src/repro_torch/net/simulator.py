@@ -13,11 +13,12 @@ For each communication phase of a sweep:
   byte counters feed a contention penalty of delta * (hottest-link
   contended bytes).
 
-Port note: only the stack path exists — a sweep is one
+Port note: a phase, or a sweep of them, is one
 :class:`~repro_torch.comm.stack.PhaseStack` priced on its device, with the
-exact queue walk in kernel K2 and the reductions in kernel K1.  The
-optional noise stream stays a numpy generator, drawn on the host in the
-reference's order.
+exact queue walk in kernel K2 and the reductions in kernel K1 — the
+per-phase entries :func:`simulate` and :func:`simulate_phase` price a
+one-phase stack.  The optional noise stream stays a numpy generator, drawn
+on the host in the reference's order.
 """
 from __future__ import annotations
 
@@ -26,9 +27,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.comm.phase import CommPhase
+from repro_torch.comm.primitives import queue_traversal_steps
 from repro_torch.comm.stack import PhaseStack, as_stack
+from repro_torch.device import resolve_device
 
-__all__ = ["PhaseResult", "simulate_many"]
+__all__ = ["PhaseResult", "SequenceResult", "simulate", "simulate_phase",
+           "simulate_many", "simulate_sequence", "queue_traversal_steps"]
 
 
 @dataclasses.dataclass
@@ -41,6 +46,99 @@ class PhaseResult:
     per_proc_queue_steps: torch.Tensor
     max_link_bytes: float
     total_net_bytes: float
+
+
+def _one(order):
+    """A per-phase order spec as the one-entry list of a one-phase stack."""
+    return None if order is None else [order]
+
+
+def simulate(phase: CommPhase,
+             recv_post_order: dict[int, np.ndarray] | None = None,
+             arrival_order: dict[int, np.ndarray] | None = None,
+             rng: np.random.Generator | None = None,
+             noise: float = 0.0, device=None) -> PhaseResult:
+    """Simulate one prebuilt :class:`CommPhase` on ``device`` (``None`` =
+    CUDA), as a one-phase stack.
+
+    ``recv_post_order[p]`` / ``arrival_order[p]``: permutations of the indices
+    (into src/dst/size) of messages destined to process ``p``, giving the
+    order receives are posted and envelopes arrive.  Default: array order for
+    both (best case, O(n) queue cost).
+
+    ``noise`` multiplies the total by a lognormal factor drawn from ``rng``.
+    The generator is owned by the *sweep*: create it once (e.g.
+    ``np.random.default_rng(seed)``) and thread it through every call, as
+    :func:`simulate_many` and the ping-pong harnesses do.  An empty phase
+    returns zeros and draws no noise.
+    """
+    if noise > 0.0 and rng is None:
+        raise ValueError(
+            "noise > 0 needs an explicit rng, created once at the sweep "
+            "level (a per-call default would redraw the same noise); "
+            "simulate_many seeds np.random.default_rng(0) for you")
+    dev = resolve_device(device)
+    if phase.n_msgs == 0:
+        return PhaseResult(0.0, 0.0, 0.0, 0.0,
+                           torch.zeros(0, dtype=torch.float32, device=dev),
+                           torch.zeros(0, dtype=torch.int64, device=dev),
+                           0.0, 0.0)
+    res = _simulate_stack(PhaseStack.build([phase], device=dev),
+                          _one(recv_post_order), _one(arrival_order))[0]
+    if noise > 0.0:
+        res.time *= float(np.exp(rng.normal(0.0, noise)))
+    return res
+
+
+@dataclasses.dataclass
+class SequenceResult:
+    """Summed result of a multi-phase sequence (a strategy rewrite): the
+    phases execute back-to-back, so times add; per-phase results are kept
+    for breakdown tables."""
+    time: float
+    transport: float
+    queue: float
+    contention: float
+    phases: list[PhaseResult]
+
+
+def simulate_sequence(phases, recv_post_orders=None, arrival_orders=None,
+                      rng: np.random.Generator | None = None,
+                      noise: float = 0.0, device=None) -> SequenceResult:
+    """Simulate a phase *sequence* end-to-end (e.g. the gather -> inter ->
+    scatter steps of a strategy rewrite) in one stack on ``device``
+    (``None`` = CUDA) and sum the step times."""
+    results = simulate_many(phases, recv_post_orders=recv_post_orders,
+                            arrival_orders=arrival_orders, rng=rng,
+                            noise=noise, device=device)
+    return SequenceResult(
+        time=sum(r.time for r in results),
+        transport=sum(r.transport for r in results),
+        queue=sum(r.queue for r in results),
+        contention=sum(r.contention for r in results),
+        phases=results)
+
+
+def simulate_phase(machine, src, dst, size,
+                   recv_post_order: dict[int, np.ndarray] | None = None,
+                   arrival_order: dict[int, np.ndarray] | None = None,
+                   rng: np.random.Generator | None = None,
+                   noise: float = 0.0, validate: bool = False,
+                   device=None) -> PhaseResult:
+    """Simulate one phase of point-to-point messages (array-level entry) on
+    ``device`` (``None`` = CUDA).
+
+    ``validate=True`` runs the typed validation layer over the message
+    arrays first (:func:`repro_torch.comm.guard.validate_messages` via
+    :meth:`CommPhase.build`): NaN/negative sizes and out-of-range ranks
+    raise a precise ``PatternError`` subclass instead of simulating
+    garbage.
+    """
+    return simulate(CommPhase.build(machine, src, dst, size,
+                                    validate=validate),
+                    recv_post_order=recv_post_order,
+                    arrival_order=arrival_order, rng=rng, noise=noise,
+                    device=device)
 
 
 def _simulate_stack(stack: PhaseStack, recv_post_orders,

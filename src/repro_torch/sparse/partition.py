@@ -2,7 +2,8 @@
 
 Given a 1-D (row-wise) partition of a sparse matrix over P processes, the
 halo exchange of y = A x sends, for every (owner -> requester) pair, the
-distinct x entries the requester's rows touch (8 bytes each).
+distinct x entries the requester's rows touch (8 bytes each); the SpGEMM
+C = A B fetches the B rows behind those columns (12 bytes a nonzero).
 :meth:`CommPattern.bind` turns a pattern into a machine-bound
 :class:`~repro_torch.comm.phase.CommPhase` and :func:`stack_patterns` a
 sweep of them into one :class:`~repro_torch.comm.stack.PhaseStack`.
@@ -22,6 +23,7 @@ from repro_torch.comm.stack import PhaseStack
 from .csr import CSR
 
 SPMV_ENTRY_BYTES = 8
+SPGEMM_NNZ_BYTES = 12    # value (8) + column index (4) per fetched B nonzero
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,4 +114,27 @@ def spmv_comm_pattern(A: CSR, part: RowPartition) -> CommPattern:
     return CommPattern(src=(uniq // part.n_procs).astype(np.int64),
                        dst=(uniq % part.n_procs).astype(np.int64),
                        size=counts.astype(np.float64) * SPMV_ENTRY_BYTES,
+                       n_procs=part.n_procs)
+
+
+def spgemm_comm_pattern(A: CSR, B: CSR, part: RowPartition) -> CommPattern:
+    """Messages to fetch remote B rows for C = A B under ``part``.
+
+    Process p gathers B rows for its off-process A columns; message size is
+    the total nnz of those rows times 12 bytes.
+    """
+    req, col = _needed_pairs(A, part)
+    if req.size == 0:
+        return CommPattern(np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64),
+                           np.zeros(0), part.n_procs)
+    owner = part.owner_of(col)
+    row_nnz = B.row_lengths()[col].astype(np.float64)
+    pair_key = owner * part.n_procs + req
+    order = np.argsort(pair_key, kind="stable")
+    pair_key, row_nnz = pair_key[order], row_nnz[order]
+    uniq, starts = np.unique(pair_key, return_index=True)
+    sums = np.add.reduceat(row_nnz, starts)
+    return CommPattern(src=(uniq // part.n_procs).astype(np.int64),
+                       dst=(uniq % part.n_procs).astype(np.int64),
+                       size=sums * SPGEMM_NNZ_BYTES,
                        n_procs=part.n_procs)

@@ -20,11 +20,13 @@ from repro_torch.comm.phase import CommPhase  # noqa: E402
 from repro_torch.comm.primitives import grouped_queue_steps  # noqa: E402
 from repro_torch.comm.stack import PhaseStack  # noqa: E402
 from repro_torch.comm.strategies import best_strategy_many  # noqa: E402
+from repro_torch.core.models import phase_cost  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import spmv_ell as ell  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
+from repro_torch.net import pingpong_sweep, simulate_phase  # noqa: E402
 from repro_torch.net.machine import blue_waters_machine  # noqa: E402
 from repro_torch.nn import (decode_step, forward_logits,  # noqa: E402
                             init_cache, init_params, params_from_numpy,
@@ -62,10 +64,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 # Reads the reference package's ``__init__`` as text (its ``__all__`` and
 # the submodule each name is imported from), so neither jax nor ``repro`` is
-# imported; prints the names re-exported, then the names left out.
+# imported; prints the names re-exported, then the names left out.  Names
+# given after the path are the port's own exports, absent from the
+# reference's ``__all__``.
 _EXPORTS = """
 import ast, importlib, sys
-pkg, ref_init = sys.argv[1], sys.argv[2]
+pkg, ref_init, extra = sys.argv[1], sys.argv[2], set(sys.argv[3:])
 tree = ast.parse(open(ref_init).read())
 home, ref_all = {}, None
 for node in tree.body:
@@ -88,7 +92,9 @@ for name in ref_all:
         continue
     assert getattr(port, name, None) is getattr(mod, orig), name
     ported.append(name)
-assert sorted(port.__all__) == sorted(ported), (port.__all__, ported)
+assert sorted(set(port.__all__) - extra) == sorted(ported), (port.__all__,
+                                                           ported)
+assert extra <= set(port.__all__) and not extra & set(ref_all), extra
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "repro"))
 assert not bad, bad
 print(" ".join(ported))
@@ -96,19 +102,26 @@ print(" ".join(left))
 """
 
 
-@pytest.mark.parametrize("pkg,must", [
+@pytest.mark.parametrize("pkg,must,extra", [
     ("comm", ("best_strategy_many", "PhaseStack", "CommPhase",
-              "grouped_queue_steps")),
-    ("core", ("phase_cost_many", "CommParams", "TorusTopology")),
-    ("net", ("simulate_many", "blue_waters_machine", "MachineSpec"))])
-def test_packages_export_every_ported_name_of_the_reference(pkg, must):
+              "grouped_queue_steps", "per_proc_sums", "PatternError",
+              "validate_phase"), ()),
+    ("core", ("phase_cost_many", "CommParams", "TorusTopology", "phase_cost",
+              "sequence_cost", "fit_alpha_beta"), ()),
+    ("net", ("simulate_many", "blue_waters_machine", "MachineSpec",
+             "simulate", "simulate_phase", "pingpong_sweep",
+             "contention_line_test"), ()),
+    ("sparse", ("spmv_comm_pattern", "spgemm_comm_pattern", "CSR"),
+     ("DeviceHierarchy",))])
+def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     # every name of repro.<pkg>.__all__ that the port defines in the
     # counterpart submodule is the same object at repro_torch.<pkg>, and
-    # repro_torch.<pkg>.__all__ lists exactly those
+    # repro_torch.<pkg>.__all__ lists exactly those and the port's own
+    # ``extra`` names
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-c", _EXPORTS, pkg,
-         str(ROOT / "src" / "repro" / pkg / "__init__.py")],
+         str(ROOT / "src" / "repro" / pkg / "__init__.py"), *extra],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr + res.stdout
     ported = res.stdout.splitlines()[0].split()
@@ -129,11 +142,25 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         grouped_queue_steps(np.array([1, 1]), 2,
                             arrival_order={1: np.array([1, 0])})
+    ph = pat.bind(m)
+    for call in (lambda: phase_cost(m.params, ph.src, ph.dst, ph.size,
+                                    ph.loc),
+                 lambda: simulate_phase(m, [0], [40], [8.0]),
+                 lambda: pingpong_sweep(m, "inter_node", [8.0, 64.0]),
+                 lambda: ph.queue_steps(arrival_order={40: np.array([0])})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     # asked for explicitly, the host runs the plain versions
     assert best_strategy_many([pat], m, device="cpu")[0].model_winner
     assert grouped_queue_steps(np.array([1, 1]), 2,
                                arrival_order={1: np.array([1, 0])},
                                device="cpu").tolist() == [0, 3]
+    assert phase_cost(m.params, ph.src, ph.dst, ph.size, ph.loc,
+                      device="cpu").total > 0
+    assert simulate_phase(m, [0], [40], [8.0], device="cpu").time > 0
+    assert pingpong_sweep(m, "inter_node", [8.0, 64.0],
+                          device="cpu").shape == (2,)
+    assert ph.queue_steps(device="cpu").sum() == ph.n_msgs
 
 
 def test_vcycle_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
