@@ -55,11 +55,24 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``simulate`` and ``phase_cost_phase`` of level 0's SpMV against the
    stacked row; one per-phase ``simulate`` and one batched
    ``pingpong_sweep`` timed; the run's launches on a line of their own;
-7. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
-   width cut to 2 layers, float32 weights, one 256-token prompt, ``prefill``
-   then 8 greedy ``decode_step`` calls on cuda and on cpu — logits within
-   1e-4 relative L2, the same tokens;
-8. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
+7. the LLM workload registry: ``repro_torch.workloads.sweep()`` on cuda,
+   the 21 (machine, scenario, phase) rows of the shipped registry (MoE
+   all-to-alls of qwen3-moe-30b-a3b and deepseek-moe-16b, llama3.2-3b's TP
+   rings and pipeline p2p, 64 ranks each, on lassen, frontier and
+   blue_waters) through one ``best_strategy_many`` call with K1's and K2's
+   counts set to 0 just before and every K1/K2 input captured and held to
+   its plain version; the rows held to ``sweep(device="cpu")`` (winners
+   equal, costs within 1e-4) and the 42 winners to the reference's table
+   (``REGISTRY_WINNERS``); the winner table, the wall split into
+   derivation, host rewrites and pricing, the device-busy share of a
+   profiled rerun and the launches;
+8. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
+   width cut to 2 layers, then the smoke configs of tinyllama-1.1b,
+   starcoder2-3b (gelu, layernorm) and qwen3-32b (qk-norm), float32
+   weights, one 256-token prompt, ``prefill`` (one K4 launch a layer) then
+   8 greedy ``decode_step`` calls on cuda and on cpu — logits within 1e-4
+   relative L2, the same tokens;
+9. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
    random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
    tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
    and K5's counts set to 0 just before (32 launches each, one a layer, all
@@ -69,8 +82,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    memory and the device busy share of a profiled prefill; then
    ``ServeEngine`` at full width (4 slots, 6 seeded requests of 2-7 prompt
    tokens, 8 new tokens each);
-9. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs,
-   worst error against the plain version, and CUDA-event times of the
+10. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
+   (K1's and K2's rows add ``registry``: their launches on phase 7's
+   sweep, with its calls' times and bound summed as below), worst error
+   against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
    yardstick, each summed over every call the full-width run made, beside
    the least time the card could take for the same calls; K1's row adds
@@ -79,7 +94,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    its ``path`` ("wgmma"), its TFLOP/s launch alone and ``vs_library``
    (launch alone over SDPA), K5's its ``path`` ("mma.sync 3xTF32"), and
    both their ``tc_launches``;
-10. the card's name and power limit as ``nvidia-smi`` reports them, then,
+11. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -118,6 +133,53 @@ KERNEL_ROWS = {
     "ssd_intra_chunk": ("src/repro_torch/kernels/csrc/ssd.cu",
                         "src/repro/kernels/ssd.py:25"),
 }
+# The reference's winners of the shipped LLM workload registry, (machine,
+# scenario, phase) -> (model winner, simulator winner): the JAX package's
+# ``repro.workloads.sweep()`` (its golden test pins the same table).
+REGISTRY_WINNERS = {
+    ("lassen", "qwen3-moe-a2a", "dispatch"):
+        ("host_staged", "host_staged"),
+    ("lassen", "qwen3-moe-a2a", "combine"):
+        ("host_staged", "host_staged"),
+    ("lassen", "deepseek-moe-a2a", "dispatch"):
+        ("host_staged", "host_staged"),
+    ("lassen", "deepseek-moe-a2a", "combine"):
+        ("host_staged", "host_staged"),
+    ("lassen", "llama3-tp", "reduce_scatter"):
+        ("three_step", "three_step"),
+    ("lassen", "llama3-tp", "all_gather"):
+        ("three_step", "three_step"),
+    ("lassen", "llama3-pipeline", "p2p"):
+        ("three_step", "three_step"),
+    ("frontier", "qwen3-moe-a2a", "dispatch"):
+        ("standard", "standard"),
+    ("frontier", "qwen3-moe-a2a", "combine"):
+        ("three_step", "three_step"),
+    ("frontier", "deepseek-moe-a2a", "dispatch"):
+        ("standard", "standard"),
+    ("frontier", "deepseek-moe-a2a", "combine"):
+        ("three_step", "three_step"),
+    ("frontier", "llama3-tp", "reduce_scatter"):
+        ("standard", "standard"),
+    ("frontier", "llama3-tp", "all_gather"):
+        ("standard", "standard"),
+    ("frontier", "llama3-pipeline", "p2p"):
+        ("three_step", "three_step"),
+    ("blue_waters", "qwen3-moe-a2a", "dispatch"):
+        ("standard", "standard"),
+    ("blue_waters", "qwen3-moe-a2a", "combine"):
+        ("three_step", "three_step"),
+    ("blue_waters", "deepseek-moe-a2a", "dispatch"):
+        ("standard", "standard"),
+    ("blue_waters", "deepseek-moe-a2a", "combine"):
+        ("three_step", "three_step"),
+    ("blue_waters", "llama3-tp", "reduce_scatter"):
+        ("standard", "standard"),
+    ("blue_waters", "llama3-tp", "all_gather"):
+        ("standard", "standard"),
+    ("blue_waters", "llama3-pipeline", "p2p"):
+        ("standard", "standard"),
+}
 # K3 against its plain version: both sum the same float32 products of a row,
 # in another order (no atomics, so the card's result does not change from
 # run to run); each sum is off by far less than 1e-5 of the row's sum of
@@ -150,6 +212,9 @@ BF16_P_TOL = 2.0 ** -8
 # the model on cuda against cpu, float32 weights: relative L2 of every
 # logits row (prefill and each decode step)
 MODEL_RTOL = 1e-4
+# dense ids whose smoke configs the small-model phase adds: llama2-style,
+# gelu MLP with layernorm, qk-norm
+DENSE_SMOKE = ("tinyllama-1.1b", "starcoder2-3b", "qwen3-32b")
 HYMBA = {"arch": "hymba-1.5b", "batch": 4, "prompt": 2048, "max_seq": 2080,
          "decode": 32, "small_prompt": 256, "small_decode": 8,
          "engine": {"slots": 4, "requests": 6, "max_new": 8, "max_seq": 64}}
@@ -448,6 +513,52 @@ def small_vcycle(levels) -> None:
         f"cpu relative L2 {rel:.3g} (limit {VCYCLE_RTOL})")
 
 
+def counted_sweep(ks, fn):
+    """Run the strategy sweep ``fn()`` with K1's and K2's counts set to 0
+    just before and read just after, every K1/K2 input captured, and
+    ``candidate_set`` (the host rewrites) and ``price_candidates`` (the
+    device passes) timed.  Returns (result, wall seconds, launches,
+    captured inputs, {"rewrite", "pricing"} seconds, {"arena", "phases"}
+    sizes of the candidate set)."""
+    from repro_torch.comm import strategies
+
+    captured = {name: [] for name in ("segment_reduce", "queue_walk")}
+    real = {name: getattr(ks, name) for name in captured}
+    real_cands, real_price = strategies.candidate_set, \
+        strategies.price_candidates
+    split, sizes = {}, {}
+
+    def spy(name):
+        def call(*args):
+            captured[name].append(args)
+            return real[name](*args)
+        return call
+
+    def timed_cands(*a, **kw):
+        out, split["rewrite"] = sync_time(lambda: real_cands(*a, **kw))
+        sizes["arena"], sizes["phases"] = out.n_msgs, len(out.phases)
+        return out
+
+    def timed_price(*a, **kw):
+        out, split["pricing"] = sync_time(lambda: real_price(*a, **kw))
+        return out
+
+    for name in real:
+        setattr(ks, name, spy(name))
+    strategies.candidate_set = timed_cands
+    strategies.price_candidates = timed_price
+    try:
+        ks.reset_launches()
+        out, wall = sync_time(fn)
+        launches = dict(ks.LAUNCHES)
+    finally:
+        for name, orig in real.items():
+            setattr(ks, name, orig)
+        strategies.candidate_set = real_cands
+        strategies.price_candidates = real_price
+    return out, wall, launches, captured, split, sizes
+
+
 def full_slice(ks):
     """The full-width run, with launches counted and kernel inputs
     captured; returns (launch counts, captured inputs)."""
@@ -465,44 +576,9 @@ def full_slice(ks):
         f"{FULL['torus']}) ({m.n_procs} ranks); operator + hierarchy + "
         f"patterns {t_setup:.2f} s (host)")
 
-    captured = {name: [] for name in ("segment_reduce", "queue_walk")}
-    real = {name: getattr(ks, name) for name in captured}
-    real_cands, real_price = strategies.candidate_set, \
-        strategies.price_candidates
-    split = {}
-    sizes = {}
-
-    def spy(name):
-        def call(*args):
-            captured[name].append(args)
-            return real[name](*args)
-        return call
-
-    def timed_cands(*a, **kw):
-        out, split["rewrite"] = sync_time(lambda: real_cands(*a, **kw))
-        sizes["arena"] = out.n_msgs
-        sizes["phases"] = len(out.phases)
-        return out
-
-    def timed_price(*a, **kw):
-        out, split["pricing"] = sync_time(lambda: real_price(*a, **kw))
-        return out
-
-    for name in real:
-        setattr(ks, name, spy(name))
-    strategies.candidate_set = timed_cands
-    strategies.price_candidates = timed_price
     torch.cuda.reset_peak_memory_stats()
-    try:
-        ks.reset_launches()
-        verdicts, wall = sync_time(
-            lambda: strategies.best_strategy_many(pats, m))
-        launches = dict(ks.LAUNCHES)
-    finally:
-        for name, fn in real.items():
-            setattr(ks, name, fn)
-        strategies.candidate_set = real_cands
-        strategies.price_candidates = real_price
+    verdicts, wall, launches, captured, split, sizes = counted_sweep(
+        ks, lambda: strategies.best_strategy_many(pats, m))
     peak = torch.cuda.max_memory_allocated()
     check_verdicts(verdicts, strategies.STRATEGIES)
     log(f"full slice arena: {sizes['arena']} messages in "
@@ -1002,7 +1078,93 @@ def paper_measurements(ks, levels, card=None) -> dict:
     return {op: r["launches"] for op, r in runs.items()}
 
 
-# -- phase 5: kernel figures ------------------------------------------------
+# -- phase 7: the LLM workload registry ------------------------------------
+
+def registry_sweep(ks, clock_hz, card=None) -> dict:
+    """``repro_torch.workloads.sweep()`` on cuda: the 21 (machine,
+    scenario, phase) rows of the shipped registry through one
+    ``best_strategy_many`` call, with K1's and K2's counts set to 0 just
+    before and every K1/K2 input captured, each held to its plain version;
+    the rows held to ``sweep(device="cpu")`` (winners equal, costs within
+    rtol 1e-4) and the winners to the reference's table
+    (``REGISTRY_WINNERS``); the wall split into derivation and binding,
+    rewrites (``candidate_set``, host) and pricing (device passes), and
+    the device-busy share of a profiled rerun; K1's and K2's calls timed
+    as the kernels line times the full slice's, summed over the sweep.
+    ``card`` is the device under test (``None`` = CUDA).  Returns, per
+    kernel, its launches on the sweep and those sums."""
+    from repro_torch.workloads import sweep, winner_table
+
+    sync_time(lambda: sweep(device=card))            # warm-up
+    rows, wall, launches, captured, split, sizes = counted_sweep(
+        ks, lambda: sweep(device=card))
+    cpu, t_cpu = sync_time(lambda: sweep(device="cpu"))
+
+    if len(rows) != len(REGISTRY_WINNERS) or len(cpu) != len(rows):
+        raise AssertionError(f"registry sweep gave {len(rows)} rows on cuda "
+                             f"and {len(cpu)} on cpu, expected "
+                             f"{len(REGISTRY_WINNERS)}")
+    for g, c in zip(rows, cpu):
+        key = (g.machine, g.scenario, g.phase)
+        if key != (c.machine, c.scenario, c.phase) or (
+                g.n_msgs, g.total_bytes) != (c.n_msgs, c.total_bytes):
+            raise AssertionError(f"registry row {key}: cuda and cpu rows "
+                                 f"differ: {g} vs {c}")
+        if (g.model_winner, g.sim_winner) != (c.model_winner, c.sim_winner):
+            raise AssertionError(f"registry row {key}: cuda picks "
+                                 f"{g.model_winner}/{g.sim_winner}, cpu "
+                                 f"{c.model_winner}/{c.sim_winner}")
+        if (g.model_winner, g.sim_winner) != REGISTRY_WINNERS.get(key):
+            raise AssertionError(f"registry row {key}: winners "
+                                 f"{g.model_winner}/{g.sim_winner}, the "
+                                 f"reference's {REGISTRY_WINNERS.get(key)}")
+        np.testing.assert_allclose([g.model, g.sim], [c.model, c.sim],
+                                   rtol=RTOL, atol=ATOL,
+                                   err_msg=f"registry row {key}")
+        if not (0 < g.model < 1 and 0 < g.sim < 1 and g.n_msgs > 0
+                and not g.degraded):
+            raise AssertionError(f"registry row {key}: bad costs {g}")
+    if not (launches["segment_reduce"] and launches["queue_walk"]):
+        raise AssertionError(f"the registry sweep did not reach K1 and K2: "
+                             f"{launches}")
+    k1 = [k1_err(ks, *c) for c in captured["segment_reduce"]]
+    k2 = [k2_check(ks, *c) for c in captured["queue_walk"]]
+
+    log(winner_table(rows))
+    derive = wall - split["rewrite"] - split["pricing"]
+    log(f"registry sweep: {len(rows)} rows, {sizes['arena']} messages in "
+        f"{sizes['phases']} candidate phases; wall {wall:.3f} s on cuda: "
+        f"derive, validate and bind {derive:.3f} s + rewrite "
+        f"{split['rewrite']:.3f} s (host, candidate_set) + pricing "
+        f"{split['pricing']:.3f} s (device passes with host order "
+        f"assembly); cpu {t_cpu:.3f} s; 42 winners equal on cuda, cpu and "
+        f"the reference's table, costs within rtol {RTOL} of cpu")
+    log(f"registry sweep kernel calls: K1 {len(k1)} held to its plain "
+        f"version (max abs err {max(e for e, _ in k1):.3g}, worst "
+        f"{max(r for _, r in k1):.3g} of the bound), K2 {len(k2)} bit-equal "
+        f"({sum(c[0].numel() for c in captured['queue_walk'])} arrivals)")
+    log(f"registry sweep launches: {launches}")
+    prof = device_share(lambda: sweep(device=card))
+    figs = {"segment_reduce": [k1_call_figures(ks, *c)
+                               for c in captured["segment_reduce"]],
+            "queue_walk": [k2_call_figures(ks, *c, clock_hz)
+                           for c in captured["queue_walk"]]}
+    out = {}
+    for name, tag in (("segment_reduce", "seg_"),
+                      ("queue_walk", "count_earlier_smaller")):
+        keys = ("ms", "kernel_ms", "plain_ms", "bound_ms") + (
+            ("library_ms",) if name == "segment_reduce" else ())
+        out[name] = {"launches": launches[name],
+                     **{k: sum(f[k] for f in figs[name]) for k in keys}}
+        # None where the profiler saw no device time
+        out[name]["device_ms"] = (sum(us for us, _, key in prof
+                                      if tag in key) / 1e3 if prof else None)
+        log(f"registry sweep {name}: {out[name]} (ms summed over its "
+            f"{launches[name]} calls; device_ms from the profiled rerun)")
+    return out
+
+
+# -- phase 10: kernel figures ------------------------------------------------
 
 def k2_chain_ops(ks, posted, arrival, bounds):
     """(ops of the longest region's serial chain, ops of all regions) of
@@ -1427,7 +1589,7 @@ def k4_k5_parity(dev) -> None:
         f"path")
 
 
-# -- phases 6 and 7: the model ---------------------------------------------------
+# -- phases 8 and 9: the model ---------------------------------------------------
 
 def greedy(model, cfg, tokens, steps: int, device, max_seq: int):
     """``prefill`` then ``steps`` greedy ``decode_step`` calls; returns
@@ -1449,23 +1611,34 @@ def greedy(model, cfg, tokens, steps: int, device, max_seq: int):
 
 
 def small_model() -> None:
-    """hymba-1.5b's smoke config and its full width cut to 2 layers, float32
-    weights, on cuda and on cpu: logits within MODEL_RTOL relative L2 of
-    each other at every step, the same greedy tokens."""
+    """hymba-1.5b's smoke config and its full width cut to 2 layers, and the
+    smoke configs of the dense ids whose blocks differ from llama3.2's
+    (tinyllama-1.1b; starcoder2-3b: gelu MLP, layernorm; qwen3-32b:
+    qk-norm), float32 weights, on cuda and on cpu: K4 launched on cuda,
+    logits within MODEL_RTOL relative L2 of each other at every step, the
+    same greedy tokens."""
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.nn import init_params, params_from_numpy, params_to_numpy
 
     S, steps = HYMBA["small_prompt"], HYMBA["small_decode"]
-    for label, cfg in (("smoke config", get_smoke_config(HYMBA["arch"])),
-                       ("full width cut to 2 layers", dataclasses.replace(
-                           get_config(HYMBA["arch"]), n_layers=2))):
+    for arch, label, cfg in (
+            (HYMBA["arch"], "smoke config", get_smoke_config(HYMBA["arch"])),
+            (HYMBA["arch"], "full width cut to 2 layers", dataclasses.replace(
+                get_config(HYMBA["arch"]), n_layers=2)),
+            *((a, "smoke config", get_smoke_config(a)) for a in DENSE_SMOKE)):
         gpu = init_params(cfg, seed=0).float()
         cpu = params_from_numpy(params_to_numpy(gpu), cfg, device="cpu",
                                 dtype=torch.float32)
         tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, S))
+        fa.reset_launches()
         (rows_g, toks_g), t_gpu = sync_time(lambda: greedy(
             gpu, cfg, torch.from_numpy(tokens).cuda(), steps, None,
             S + steps))
+        k4 = fa.LAUNCHES["flash_attention"]
+        if k4 != cfg.n_layers:
+            raise AssertionError(f"small model {arch} ({label}): K4 launched "
+                                 f"{k4} times, expected {cfg.n_layers}")
         t = time.perf_counter()
         rows_c, toks_c = greedy(cpu, cfg, torch.from_numpy(tokens), steps,
                                 "cpu", S + steps)
@@ -1473,15 +1646,17 @@ def small_model() -> None:
         rels = [rel_l2(g, c) for g, c in zip(rows_g, rows_c)]
         if not max(rels) <= MODEL_RTOL or not all(
                 bool(torch.isfinite(r).all()) for r in rows_g):
-            raise AssertionError(f"small model ({label}): cuda vs cpu logits "
-                                 f"relative L2 {rels}")
+            raise AssertionError(f"small model {arch} ({label}): cuda vs "
+                                 f"cpu logits relative L2 {rels}")
         if not torch.equal(toks_g, toks_c):
-            raise AssertionError(f"small model ({label}): greedy tokens "
-                                 f"differ: cuda {toks_g.tolist()}, cpu "
-                                 f"{toks_c.tolist()}")
-        log(f"small model, hymba-1.5b {label} ({cfg.n_layers} layers, "
-            f"d_model {cfg.d_model}), float32, 1 x {S}-token prompt + "
-            f"{steps} greedy steps: cuda {t_gpu:.3f} s, cpu {t_cpu:.3f} s; "
+            raise AssertionError(f"small model {arch} ({label}): greedy "
+                                 f"tokens differ: cuda {toks_g.tolist()}, "
+                                 f"cpu {toks_c.tolist()}")
+        log(f"small model, {arch} {label} ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {cfg.mlp_type} MLP, {cfg.norm_type}, "
+            f"qk_norm {cfg.qk_norm}), float32, 1 x {S}-token prompt + "
+            f"{steps} greedy steps, {k4} K4 launches: cuda {t_gpu:.3f} s, "
+            f"cpu {t_cpu:.3f} s; "
             f"logits relative L2 worst {max(rels):.3g} (limit {MODEL_RTOL}),"
             f" tokens equal {toks_g[0].tolist()}")
 
@@ -1622,7 +1797,7 @@ def serve_engine(cfg, model, fa, ssd) -> None:
         log(f"  req {r.uid}: prompt {r.prompt} -> {r.output}")
 
 
-# -- phase 8: K4 and K5 figures ---------------------------------------------------
+# -- phase 10: K4 and K5 figures --------------------------------------------------
 
 def k4_call_figures(fa, q, k, v, causal) -> dict:
     """CUDA-event times of one K4 call (the wrapper, the launch alone, the
@@ -1779,13 +1954,18 @@ def main() -> int:
     launches, captured, levels = full_slice(ks)
     k3_run = full_vcycle(levels)
     paper_launches = paper_measurements(ks, levels)
+    registry = registry_sweep(ks, clock_mhz * 1e6)
     small_model()
     model_run = full_model()
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
+    for row in rows:            # K1 and K2: their calls on the registry sweep
+        row["registry"] = registry[row["name"]]
     rows.append(k3_row(*k3_run))
     rows.extend(model_kernel_rows(*model_run))
     log(f"paper measurements launches (Figs. 10-11 at full width): "
         f"{paper_launches}")
+    log("registry sweep launches: " + ", ".join(
+        f"{k} {v['launches']}" for k, v in registry.items()))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import comm_stack as ks
 
+from .guard import ArenaOverflowError
 from .phase import CommPhase
 from .primitives import (active_senders_per_node, flat_orders,
                          group_by_receiver, grouped_queue_steps,
@@ -162,15 +163,16 @@ class PhaseStack:
 
     def _put(self, a: np.ndarray, what: str) -> torch.Tensor:
         """A host array on the stack's device: float64 as float32, int64 as
-        int32 (raising when a value lies outside int32)."""
+        int32 (raising :class:`~repro_torch.comm.guard.ArenaOverflowError`
+        when a value lies outside int32)."""
         a = np.asarray(a)
         if a.dtype == np.float64:
             a = a.astype(np.float32)
         elif a.dtype == np.int64:
             if a.size and (a.max() > 2 ** 31 - 1 or a.min() < -2 ** 31):
-                raise OverflowError(
-                    f"arena column {what!r} exceeds int32; split the sweep "
-                    "into smaller stacks")
+                raise ArenaOverflowError(
+                    f"arena column {what!r} exceeds int32 range; split the "
+                    "sweep into smaller stacks")
             a = a.astype(np.int32)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 

@@ -1,9 +1,11 @@
-"""Architecture registry of the port: the configs whose block kinds it runs.
+"""Architecture registry of the port: the 10 assigned configs.
 
-The copies of ``repro.configs`` for hymba-1.5b (hybrid: attention and SSD
-side by side), mamba2-130m (ssm) and llama3.2-3b (dense attention).  Any
-other arch id of the reference registry raises a ``KeyError`` that says it
-is not yet ported.
+Copies of ``repro.configs``.  Every id builds its ``ArchConfig``; the
+dense, ssm and hybrid ones also run on the port's blocks, while the MoE,
+VLM and audio ids (deepseek-moe-16b, qwen3-moe-30b-a3b, qwen2-vl-72b,
+whisper-small) raise ``NotImplementedError`` when a model is built from
+them (``repro_torch.nn.model``): their blocks are not ported yet.  The
+workload registry needs only their configs.
 """
 from __future__ import annotations
 
@@ -13,23 +15,23 @@ from repro_torch.nn.config import ArchConfig
 
 _MODULES = {
     "llama3.2-3b": "llama3_2_3b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "starcoder2-3b": "starcoder2_3b",
+    "qwen3-32b": "qwen3_32b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "mamba2-130m": "mamba2_130m",
     "hymba-1.5b": "hymba_1_5b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "whisper-small": "whisper_small",
 }
-#: Arch ids of the reference registry that wait for their blocks' port.
-NOT_YET_PORTED = ("tinyllama-1.1b", "starcoder2-3b", "qwen3-32b",
-                  "deepseek-moe-16b", "qwen3-moe-30b-a3b", "qwen2-vl-72b",
-                  "whisper-small")
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def _mod(arch: str):
     if arch not in _MODULES:
-        if arch in NOT_YET_PORTED:
-            raise KeyError(f"arch {arch!r} is not yet ported to repro_torch; "
-                           f"ported: {list(_MODULES)}")
-        raise KeyError(f"unknown arch {arch!r}; ported: {list(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 
@@ -41,4 +43,11 @@ def get_smoke_config(arch: str) -> ArchConfig:
     return _mod(arch).smoke_config()
 
 
-__all__ = ["ARCH_IDS", "NOT_YET_PORTED", "get_config", "get_smoke_config"]
+def all_configs() -> dict[str, ArchConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+from .shapes import SHAPES, ShapeSpec, cell_applicable, all_cells  # noqa: E402
+
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "all_configs",
+           "SHAPES", "ShapeSpec", "cell_applicable", "all_cells"]

@@ -200,7 +200,10 @@ def _queue_layout(posted: torch.Tensor, arrival: torch.Tensor,
     ``starts``/``counts``, private tree offsets ``toff`` and power-of-two
     ``span`` per region, and the tree length (every region's ``span + 1``
     cells plus one shared sink) — the reference layout of
-    ``_queue_layout`` in the JAX package."""
+    ``_queue_layout`` in the JAX package.  Raises unless ``posted`` and
+    ``arrival`` are both permutations within each region (the reference
+    checks neither; a repeated arrival would make K2 and the plain walk
+    disagree)."""
     for t, what in ((posted, "posted"), (arrival, "arrival"),
                     (bounds, "bounds")):
         _check(t, torch.int64, what)
@@ -224,8 +227,13 @@ def _queue_layout(posted: torch.Tensor, arrival: torch.Tensor,
     pos = torch.full((N,), -1, dtype=torch.int64, device=dev)
     pos[start_of + posted] = torch.arange(N, device=dev) - start_of
     b = pos[start_of + arrival]
-    if N and bool((b < 0).any()):
-        raise ValueError("posted must be a permutation within each region")
+    # a slot no posted index names leaves b < 0; a slot that two arrivals
+    # name is counted twice: both checks ride the one host read
+    hits = torch.zeros(N, dtype=torch.int64, device=dev)
+    hits.index_add_(0, start_of + arrival, torch.ones_like(arrival))
+    if N and bool(((b < 0) | (hits != 1)).any()):
+        raise ValueError("posted and arrival must be permutations within "
+                         "each region")
     v = (counts - 1).clamp_min(0)          # next power of two >= count
     for sh in (1, 2, 4, 8, 16, 32):
         v = v | (v >> sh)

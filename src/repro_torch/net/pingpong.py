@@ -87,9 +87,9 @@ def pingpong_sweep(machine: MachineSpec, kind: str, sizes,
     sizes = [float(s) for s in sizes]
     phases = [ph for s in sizes for _ in range(reps)
               for ph in (_ping(machine, a, b, s), _ping(machine, b, a, s))]
-    if not phases:
+    if not phases:                # reps <= 0: no ping, one NaN a size
         resolve_device(device)
-        return np.asarray([])
+        return np.full(len(sizes), np.nan)
     times = [r.time for r in simulate_many(
         phases, rng=np.random.default_rng(seed), noise=noise,
         device=device)]

@@ -61,13 +61,44 @@ class CommPattern:
     def n_msgs(self) -> int:
         return int(self.src.size)
 
-    def bind(self, machine, n_procs: int | None = None) -> CommPhase:
+    @property
+    def total_bytes(self) -> float:
+        return float(self.size.sum())
+
+    def max_msgs_per_proc(self) -> int:
+        if self.src.size == 0:
+            return 0
+        return int(np.bincount(self.dst, minlength=self.n_procs).max())
+
+    def validate(self, where: str | None = None) -> "CommPattern":
+        """Run the typed validation layer over this pattern and return it.
+
+        Raises a precise :class:`repro_torch.comm.guard.PatternError`
+        subclass for NaN / negative message sizes, out-of-range or
+        non-integral ranks, or an int32-overflow arena — before the pattern
+        reaches any kernel.  ``where`` labels the pattern in error text
+        (default: ``'CommPattern'``).  Returns ``self``, so it chains:
+        ``pattern.validate().bind(machine)``.
+        """
+        from repro_torch.comm.guard import validate_phase
+        validate_phase(self, where=where)
+        return self
+
+    def bind(self, machine, n_procs: int | None = None,
+             validate: bool = False) -> CommPhase:
         """Bind this pattern to a machine: a :class:`CommPhase` with
         locality, protocol, torus endpoints and active-sender counts
-        cached."""
+        cached.  ``validate=True`` runs the typed validation first."""
         return CommPhase.build(machine, self.src, self.dst, self.size,
                                n_procs=self.n_procs if n_procs is None
-                               else n_procs)
+                               else n_procs, validate=validate)
+
+    def rewrite(self, machine, strategy: str):
+        """Bind to ``machine`` and apply a node-aware strategy rewrite: a
+        :class:`repro_torch.comm.strategies.StrategyPlan` whose phase
+        sequence the batched entry points price directly."""
+        from repro_torch.comm.strategies import rewrite
+        return rewrite(self.bind(machine), strategy)
 
     def best_strategy(self, machine, **kw):
         """Sweep every strategy on this pattern: the model ladder's predicted

@@ -35,6 +35,7 @@ from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.sparse import (DeviceHierarchy, build_hierarchy,  # noqa: E402
                                 poisson_3d, vcycle)
 from repro_torch.sparse.partition import CommPattern  # noqa: E402
+from repro_torch.workloads import Scenario, sweep  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -57,14 +58,16 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr + res.stdout
-    # every module was imported: the V-cycle's and K3's, and the model
-    # slice's (nn, configs, launch, serve, K4, K5) among them
-    assert int(res.stdout.split()[-1]) >= 40
+    # every module was imported: the V-cycle's and K3's, the model
+    # slice's (nn, configs, launch, serve, K4, K5) and the workload
+    # registry's among them
+    assert int(res.stdout.split()[-1]) >= 53
 
 
 # Reads the reference package's ``__init__`` as text (its ``__all__`` and
 # the submodule each name is imported from), so neither jax nor ``repro`` is
-# imported; prints the names re-exported, then the names left out.  Names
+# imported; prints the names re-exported, then the names left out.  A name
+# the ``__init__`` defines itself is looked up in the port's package.  Names
 # given after the path are the port's own exports, absent from the
 # reference's ``__all__``.
 _EXPORTS = """
@@ -81,9 +84,10 @@ for node in tree.body:
 port = importlib.import_module("repro_torch." + pkg)
 ported, left = [], []
 for name in ref_all:
-    sub, orig = home[name]
+    sub, orig = home.get(name, (None, name))
     try:
-        mod = importlib.import_module("repro_torch." + pkg + "." + sub)
+        mod = importlib.import_module("repro_torch." + pkg
+                                      + ("." + sub if sub else ""))
     except ModuleNotFoundError:
         left.append(name)
         continue
@@ -112,7 +116,12 @@ print(" ".join(left))
              "simulate", "simulate_phase", "pingpong_sweep",
              "contention_line_test"), ()),
     ("sparse", ("spmv_comm_pattern", "spgemm_comm_pattern", "CSR"),
-     ("DeviceHierarchy",))])
+     ("DeviceHierarchy",)),
+    ("configs", ("ARCH_IDS", "get_config", "all_configs", "SHAPES",
+                 "all_cells"), ()),
+    ("workloads", ("sweep", "winner_table", "DEFAULT_SCENARIOS",
+                   "moe_a2a_pattern", "tp_collective_patterns",
+                   "pipeline_p2p_pattern"), ())])
 def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     # every name of repro.<pkg>.__all__ that the port defines in the
     # counterpart submodule is the same object at repro_torch.<pkg>, and
@@ -124,8 +133,13 @@ def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
          str(ROOT / "src" / "repro" / pkg / "__init__.py"), *extra],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr + res.stdout
-    ported = res.stdout.splitlines()[0].split()
+    ported, left = (line.split() for line in res.stdout.splitlines()[:2])
     assert set(must) <= set(ported), ported
+    if pkg in ("configs", "workloads"):
+        # the one name left: the pspec cross-check needs the jax sharding
+        # tree (ROADMAP queue item 7)
+        assert left == (["row_parallel_ops_from_pspecs"]
+                        if pkg == "workloads" else []), left
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
@@ -143,11 +157,15 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         grouped_queue_steps(np.array([1, 1]), 2,
                             arrival_order={1: np.array([1, 0])})
     ph = pat.bind(m)
+    tiny = Scenario(name="tiny", arch="llama3.2-3b",
+                    workload="pipeline_p2p", n_ranks=64, tokens_per_rank=8,
+                    n_stages=2, n_microbatches=1)
     for call in (lambda: phase_cost(m.params, ph.src, ph.dst, ph.size,
                                     ph.loc),
                  lambda: simulate_phase(m, [0], [40], [8.0]),
                  lambda: pingpong_sweep(m, "inter_node", [8.0, 64.0]),
-                 lambda: ph.queue_steps(arrival_order={40: np.array([0])})):
+                 lambda: ph.queue_steps(arrival_order={40: np.array([0])}),
+                 lambda: sweep([tiny], {"blue_waters": m})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asked for explicitly, the host runs the plain versions
@@ -161,6 +179,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert pingpong_sweep(m, "inter_node", [8.0, 64.0],
                           device="cpu").shape == (2,)
     assert ph.queue_steps(device="cpu").sum() == ph.n_msgs
+    row, = sweep([tiny], {"blue_waters": m}, device="cpu")
+    assert (row.n_msgs, row.degraded) == (1, False)
 
 
 def test_vcycle_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):

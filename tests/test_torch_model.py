@@ -3,8 +3,9 @@ the parameter tree, prefill, greedy decode and the serving engine.
 
 The reference's parameters (``repro.nn.init_params``) are carried into the
 port with ``params_from_numpy``, so both run on the same weights.  Smoke
-configs of the three ported families (hymba: hybrid, mamba2: ssm, llama3.2:
-dense attention): in float32 the prefill logits and cache and 8 decode steps
+configs of the ported families (hymba: hybrid, mamba2: ssm, llama3.2 and
+tinyllama: dense attention, starcoder2: gelu MLP and layernorm, qwen3-32b:
+qk-norm): in float32 the prefill logits and cache and 8 decode steps
 agree at rtol/atol 1e-4 and pick the same greedy tokens; in bfloat16 they
 agree at rtol/atol 0.1, the bound the reference holds its own prefill to
 its full forward (``tests/test_nn_models.py``).
@@ -26,12 +27,18 @@ from repro.serve import ServeEngine as RefEngine  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
-from repro_torch.nn import (cache_shapes, decode_step, forward_logits,  # noqa: E402
-                            init_cache, init_params, param_shapes,
-                            params_from_numpy, params_to_numpy, prefill)
+from repro_torch.nn import (Model, cache_shapes, decode_step,  # noqa: E402
+                            forward_logits, init_cache, init_params,
+                            param_shapes, params_from_numpy,
+                            params_to_numpy, prefill)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
-ARCHS = ["hymba-1.5b", "mamba2-130m", "llama3.2-3b"]
+ARCHS = ["hymba-1.5b", "mamba2-130m", "llama3.2-3b", "tinyllama-1.1b",
+         "starcoder2-3b", "qwen3-32b"]
+#: Arch ids whose configs are ported but whose blocks wait for ROADMAP queue
+#: item 5 (MoE, the VLM frontend, the audio encoder).
+UNPORTED_BLOCKS = ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "qwen2-vl-72b",
+                   "whisper-small"]
 F32_TOL = 1e-4
 BF16_TOL = 0.1
 N_DECODE = 8
@@ -54,7 +61,7 @@ def _close(got, want, tol, what):
 
 
 # -- configs -------------------------------------------------------------------
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copies_equal_repro(arch, smoke):
     get = "get_smoke_config" if smoke else "get_config"
@@ -76,13 +83,36 @@ def test_hymba_full_width_parameter_count():
     assert cfg.n_params() == 1_640_144_000
 
 
-@pytest.mark.parametrize("arch", [a for a in ref_configs.ARCH_IDS
-                                  if a not in ARCHS])
-def test_unported_archs_raise_key_error(arch):
-    with pytest.raises(KeyError, match="not yet ported"):
-        configs.get_config(arch)
-    with pytest.raises(KeyError, match="not yet ported"):
-        configs.get_smoke_config(arch)
+def test_registry_ids_and_shapes_equal_repro():
+    assert configs.ARCH_IDS == ref_configs.ARCH_IDS
+    assert set(ARCHS) | set(UNPORTED_BLOCKS) == set(configs.ARCH_IDS)
+    assert {k: dataclasses.asdict(v) for k, v in configs.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in ref_configs.SHAPES.items()}
+    for arch in configs.ARCH_IDS:
+        for name, shape in configs.SHAPES.items():
+            assert configs.cell_applicable(configs.get_config(arch), shape) \
+                == ref_configs.cell_applicable(ref_configs.get_config(arch),
+                                               ref_configs.SHAPES[name])
+    cells = configs.all_cells(configs.all_configs())
+    assert len(cells) == 40
+    assert cells == ref_configs.all_cells(ref_configs.all_configs())
+
+
+@pytest.mark.parametrize("arch", UNPORTED_BLOCKS)
+@pytest.mark.parametrize("smoke", [False, True])
+def test_unported_blocks_build_their_config_and_raise_at_model(arch, smoke):
+    cfg = (configs.get_smoke_config if smoke else configs.get_config)(arch)
+    assert cfg.name == arch
+    for call in (lambda: Model(cfg, {}), lambda: param_shapes(cfg),
+                 lambda: init_params(cfg, device="cpu")):
+        with pytest.raises(NotImplementedError, match="queue item 5"):
+            call()
+
+
+def test_unknown_arch_raises_key_error():
+    for get in (configs.get_config, configs.get_smoke_config):
+        with pytest.raises(KeyError, match="unknown arch 'gpt-2'"):
+            get("gpt-2")
 
 
 # -- layers --------------------------------------------------------------------
