@@ -52,6 +52,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    input captured and held to its plain version, the whole run held to
    the same run on cpu (steps bit-equal, totals within 1e-4); each level's
    measured time and five ladder rungs and the three derived rows;
+   then Figs. 10-11 at the reference benchmark's own setup
+   (``elasticity_like_3d(14)`` on ``blue_waters_machine((4, 4, 2))``, at
+   most 1,024 ranks a level) on cuda and cpu, its six ``fig10_11_*`` rows
+   held to the reference's (``FIG10_11_REFERENCE``) within 1e-4;
    ``simulate`` and ``phase_cost_phase`` of level 0's SpMV against the
    stacked row; one per-phase ``simulate`` and one batched
    ``pingpong_sweep`` timed; the run's launches on a line of their own;
@@ -66,13 +70,26 @@ Phases, in order (any failure raises and the script exits non-zero):
    (``REGISTRY_WINNERS``); the winner table, the wall split into
    derivation, host rewrites and pricing, the device-busy share of a
    profiled rerun and the launches;
-8. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
+8. delta re-pricing (``repro_torch.comm.delta.DeltaStack`` under
+   ``repro_torch.sparse.optimize_partition``), with K1's and K2's counts set
+   to 0 before each search, every K1/K2 input captured and held to its
+   plain version, and no fresh arena built during a search:
+   ``benchmarks/bench_delta.py``'s search (``elasticity_like_3d(12)``, 512
+   ranks of ``blue_waters_machine((4, 2, 2))``, 64 moves) on cuda and cpu,
+   held to each other and to the reference's recorded costs and accept
+   decisions (``DELTA_REFERENCE``), also by replaying the reference's
+   candidates through the port's delta path; a full-width search on level
+   0 of phase 4's hierarchy (8,192 ranks, 64 moves) timed against a rebuild
+   of the same candidates (the ratio printed); ``verify=True`` applies and
+   one ``simulate_many`` with random arrivals on its final arena, held to a
+   fresh ``PhaseStack``;
+9. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
    width cut to 2 layers, then the smoke configs of tinyllama-1.1b,
    starcoder2-3b (gelu, layernorm) and qwen3-32b (qk-norm), float32
    weights, one 256-token prompt, ``prefill`` (one K4 launch a layer) then
    8 greedy ``decode_step`` calls on cuda and on cpu — logits within 1e-4
    relative L2, the same tokens;
-9. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
+10. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
    random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
    tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
    and K5's counts set to 0 just before (32 launches each, one a layer, all
@@ -82,9 +99,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    memory and the device busy share of a profiled prefill; then
    ``ServeEngine`` at full width (4 slots, 6 seeded requests of 2-7 prompt
    tokens, 8 new tokens each);
-10. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
-   (K1's and K2's rows add ``registry``: their launches on phase 7's
-   sweep, with its calls' times and bound summed as below), worst error
+11. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
+   (K1's and K2's rows add ``registry`` and ``delta``: their launches on
+   phase 7's sweep and on phase 8, with their calls' times and bound summed
+   as below), worst error
    against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
    yardstick, each summed over every call the full-width run made, beside
@@ -94,7 +112,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    its ``path`` ("wgmma"), its TFLOP/s launch alone and ``vs_library``
    (launch alone over SDPA), K5's its ``path`` ("mma.sync 3xTF32"), and
    both their ``tc_launches``;
-11. the card's name and power limit as ``nvidia-smi`` reports them, then,
+12. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -180,6 +198,92 @@ REGISTRY_WINNERS = {
     ("blue_waters", "llama3-pipeline", "p2p"):
         ("standard", "standard"),
 }
+# Figs. 10-11 at the reference benchmark's own setup
+# (benchmarks/bench_paper.py, bench_amg_spmv_spgemm) and the JAX package's
+# six derived rows there (``python -m benchmarks.run``; the SpGEMM rows are
+# its ``fig10_11_spgemm_AP_*``).
+FIG10_11_SETUP = {"nx": 14, "torus": (4, 4, 2), "max_ranks": 1024}
+FIG10_11_REFERENCE = {
+    "spmv": {"underprediction": 0.10180537092653945,
+             "plus_queue_relerr": 0.110817854207341,
+             "queue_contention_share": 0.1018053709265394},
+    "spgemm": {"underprediction": 0.2182493935133182,
+               "plus_queue_relerr": 0.1551730708057454,
+               "queue_contention_share": 0.21824939351331818},
+}
+# The delta re-pricing search of benchmarks/bench_delta.py and the JAX
+# package's record of it (``repro.sparse.optimize_partition`` with these
+# arguments): its initial modeled cost, then per move (boundary, shift,
+# candidate cost or None where the proposal was infeasible, accepted).
+DELTA_BENCH = {"nx": 12, "torus": (4, 2, 2), "n_procs": 512, "moves": 64,
+               "seed": 0, "level": "contention"}
+DELTA_REFERENCE_INITIAL = 0.0001511815433307433
+DELTA_REFERENCE = [
+    (435, 1, 0.0001511815433307433, False),
+    (262, -1, 0.0001511815433307433, False),
+    (158, -1, 0.00015122136555296552, False),
+    (39, -1, 0.00015119292110852108, False),
+    (90, 1, 0.0001511815433307433, False),
+    (332, 1, 0.00015168200259000258, False),
+    (258, 1, 0.0001511815433307433, False),
+    (497, 1, 0.00015120429888629885, False),
+    (324, 1, 0.0001511815433307433, False),
+    (287, 1, 0.00015259689842009842, False),
+    (142, 1, 0.00015114172110852108, True),
+    (343, -1, 0.00015114172110852108, False),
+    (202, 1, 0.00015110758777518775, True),
+    (284, -1, 0.00015115263019943018, False),
+    (391, 1, 0.00015107345444185442, True),
+    (433, -1, 0.00015107345444185442, False),
+    (46, 1, 0.00015107345444185442, False),
+    (12, 1, 0.0001515189211085211, False),
+    (42, -1, 0.00015109620999740998, False),
+    (246, -1, 0.00015103932110852112, True),
+    (207, -1, 0.00015101656555296554, True),
+    (3, -1, 0.0001510279433307433, False),
+    (5, 1, 0.00015101656555296554, False),
+    (269, 1, 0.00015148478777518776, False),
+    (132, 1, 0.00015101656555296554, False),
+    (391, -1, 0.0001510506988862989, False),
+    (236, 1, 0.0001510581278425278, False),
+    (412, 1, 0.0001509824322196322, True),
+    (194, 1, 0.00015240533975653976, False),
+    (486, 1, 0.0001509824322196322, False),
+    (430, 1, 0.00015094260999741, True),
+    (360, -1, 0.00015090847666407664, True),
+    (448, -1, 0.00015100016317016313, False),
+    (296, 1, 0.00015095398777518776, False),
+    (433, 1, 0.00015090847666407664, False),
+    (192, -1, 0.00015086106925666927, True),
+    (217, -1, 0.00015086106925666927, False),
+    (368, 1, 0.00015413189826469825, False),
+    (38, 1, 0.00015086106925666927, False),
+    (272, -1, 0.00015415407946127945, False),
+    (344, 1, 0.0001509136641284641, False),
+    (131, -1, 0.00015132929147889147, False),
+    (368, 1, 0.00015413189826469825, False),
+    (258, -1, 0.00015082124703444703, True),
+    (389, -1, 0.00015087384190624187, False),
+    (168, 1, 0.00015082124703444703, False),
+    (135, -1, 0.00015078711370111367, True),
+    (365, 1, 0.0001508269359233359, False),
+    (25, -1, 0.00015078711370111367, False),
+    (193, 1, 0.00015074729147889146, True),
+    (205, 1, 0.00015070746925666925, True),
+    (162, -1, 0.00015066764703444702, True),
+    (405, 1, 0.00015066764703444702, False),
+    (41, -1, 0.00015064489147889148, True),
+    (344, -1, 0.00015111357865837862, False),
+    (294, -1, 0.0001506221359233359, True),
+    (440, -1, 0.0001511188025900026, False),
+    (458, 1, 0.0001511188025900026, False),
+    (361, -1, 0.0001506221359233359, False),
+    (392, -1, 0.00015067473079513076, False),
+    (292, -1, 0.0001506221359233359, False),
+    (510, -1, 0.00015061075814555813, True),
+    (484, -1, 0.00015061075814555813, False),
+    (319, 1, 0.0001505709359233359, True),
+]
 # K3 against its plain version: both sum the same float32 products of a row,
 # in another order (no atomics, so the card's result does not change from
 # run to run); each sum is off by far less than 1e-5 of the row's sum of
@@ -513,26 +617,53 @@ def small_vcycle(levels) -> None:
         f"cpu relative L2 {rel:.3g} (limit {VCYCLE_RTOL})")
 
 
-def counted_sweep(ks, fn):
-    """Run the strategy sweep ``fn()`` with K1's and K2's counts set to 0
-    just before and read just after, every K1/K2 input captured, and
-    ``candidate_set`` (the host rewrites) and ``price_candidates`` (the
-    device passes) timed.  Returns (result, wall seconds, launches,
-    captured inputs, {"rewrite", "pricing"} seconds, {"arena", "phases"}
-    sizes of the candidate set)."""
-    from repro_torch.comm import strategies
+def counted_kernels(ks, fn):
+    """Run ``fn()`` with K1's and K2's counts set to 0 just before and read
+    just after, every K1/K2 input captured and every ``PhaseStack.build``
+    counted.  Returns (result, wall seconds, launches, captured inputs,
+    arenas built)."""
+    from repro_torch.comm.stack import PhaseStack
 
     captured = {name: [] for name in ("segment_reduce", "queue_walk")}
     real = {name: getattr(ks, name) for name in captured}
-    real_cands, real_price = strategies.candidate_set, \
-        strategies.price_candidates
-    split, sizes = {}, {}
+    real_build = PhaseStack.__dict__["build"]
+    builds = []
 
     def spy(name):
         def call(*args):
             captured[name].append(args)
             return real[name](*args)
         return call
+
+    def counted_build(cls, *a, **kw):
+        builds.append(1)
+        return real_build.__func__(cls, *a, **kw)
+
+    for name in real:
+        setattr(ks, name, spy(name))
+    PhaseStack.build = classmethod(counted_build)
+    try:
+        ks.reset_launches()
+        out, wall = sync_time(fn)
+        launches = dict(ks.LAUNCHES)
+    finally:
+        for name, orig in real.items():
+            setattr(ks, name, orig)
+        PhaseStack.build = real_build
+    return out, wall, launches, captured, len(builds)
+
+
+def counted_sweep(ks, fn):
+    """Run the strategy sweep ``fn()`` through :func:`counted_kernels`,
+    with ``candidate_set`` (the host rewrites) and ``price_candidates`` (the
+    device passes) timed.  Returns (result, wall seconds, launches,
+    captured inputs, {"rewrite", "pricing"} seconds, {"arena", "phases"}
+    sizes of the candidate set)."""
+    from repro_torch.comm import strategies
+
+    real_cands, real_price = strategies.candidate_set, \
+        strategies.price_candidates
+    split, sizes = {}, {}
 
     def timed_cands(*a, **kw):
         out, split["rewrite"] = sync_time(lambda: real_cands(*a, **kw))
@@ -543,17 +674,11 @@ def counted_sweep(ks, fn):
         out, split["pricing"] = sync_time(lambda: real_price(*a, **kw))
         return out
 
-    for name in real:
-        setattr(ks, name, spy(name))
     strategies.candidate_set = timed_cands
     strategies.price_candidates = timed_price
     try:
-        ks.reset_launches()
-        out, wall = sync_time(fn)
-        launches = dict(ks.LAUNCHES)
+        out, wall, launches, captured, _ = counted_kernels(ks, fn)
     finally:
-        for name, orig in real.items():
-            setattr(ks, name, orig)
         strategies.candidate_set = real_cands
         strategies.price_candidates = real_price
     return out, wall, launches, captured, split, sizes
@@ -867,7 +992,7 @@ def paper_fits(device) -> dict:
                 steps=[s.cpu() for s in steps], walls=walls)
 
 
-def amg_tagged(levels, op: str, machine):
+def amg_tagged(levels, op: str, machine, max_ranks: int = FULL["max_ranks"]):
     """(level, bound phase) of one operation over the hierarchy, as
     ``benchmarks/bench_paper._amg_phases`` makes them: each level over
     ``min(max_ranks, rows // 2)`` ranks, empty patterns skipped."""
@@ -877,7 +1002,7 @@ def amg_tagged(levels, op: str, machine):
     out = []
     for li, lvl in enumerate(levels):
         part = RowPartition.balanced(
-            lvl.A.n_rows, min(FULL["max_ranks"], max(lvl.A.n_rows // 2, 2)))
+            lvl.A.n_rows, min(max_ranks, max(lvl.A.n_rows // 2, 2)))
         if op == "spmv":
             cp = spmv_comm_pattern(lvl.A, part)
         elif li + 1 < len(levels):
@@ -920,6 +1045,54 @@ def same_steps(got, want, what: str) -> None:
                              "cpu")
 
 
+def reference_setup_fig10_11(card=None) -> None:
+    """Figs. 10-11 at the reference benchmark's own setup
+    (``benchmarks/bench_paper.py``: ``elasticity_like_3d(14)``, its AMG
+    hierarchy, each level over at most 1,024 ranks of
+    ``blue_waters_machine((4, 4, 2))``, random arrivals from seed 0) on
+    ``card`` and on cpu: steps bit-equal, and the six ``fig10_11_*`` rows
+    held to the reference's (``FIG10_11_REFERENCE``) within rtol 1e-4; each
+    level's measured time and five rungs logged."""
+    from repro_torch.core.models import MODEL_LEVELS
+    from repro_torch.net.machine import blue_waters_machine
+    from repro_torch.sparse import build_hierarchy, elasticity_like_3d
+
+    cfg = FIG10_11_SETUP
+    levels = build_hierarchy(elasticity_like_3d(cfg["nx"]), theta=0.25)
+    m = blue_waters_machine(cfg["torus"])
+    for op in ("spmv", "spgemm"):
+        tagged = amg_tagged(levels, op, m, max_ranks=cfg["max_ranks"])
+        phases = [ph for _, ph in tagged]
+        arrivals = [ph.random_arrival_order(np.random.default_rng(0))
+                    for ph in phases]
+        g = price_fig10_11(phases, arrivals, card)
+        c = price_fig10_11(phases, arrivals, "cpu")
+        same_steps(g["steps"], c["steps"], f"Figs. 10-11 {op} at "
+                   f"{cfg['max_ranks']} ranks")
+        got = {k: g[k] for k in FIG10_11_REFERENCE[op]}
+        np.testing.assert_allclose(
+            list(got.values()), list(FIG10_11_REFERENCE[op].values()),
+            rtol=RTOL, err_msg=f"Figs. 10-11 {op} at the reference's setup")
+        log(f"paper Fig. {10 if op == 'spmv' else 11} ({op}) at the "
+            f"reference's setup: elasticity_like_3d({cfg['nx']}), "
+            f"blue_waters_machine({cfg['torus']}), at most "
+            f"{cfg['max_ranks']} ranks a level: {len(phases)} phases, "
+            f"{sum(p.n_msgs for p in phases)} messages; simulate_many "
+            f"{g['t_sim']:.3f} s, model_ladder_many {g['t_ladder']:.3f} s; "
+            "steps bit-equal to cpu")
+        for (li, ph), meas, *rungs in zip(
+                tagged, g["measured"], *(g["ladder"][k]
+                                         for k in MODEL_LEVELS)):
+            log(f"  level {li}: {ph.n_procs} ranks, {ph.n_msgs} msgs, max "
+                f"{ph.max_msgs_per_proc()} a rank; measured {meas:.6g} s; "
+                + ", ".join(f"{k} {v:.6g}" for k, v in zip(MODEL_LEVELS,
+                                                           rungs))
+                + f"; +queue / measured {rungs[3] / meas:.4f}")
+        log("  " + ", ".join(
+            f"fig10_11_{op}_{k} {v!r} (reference "
+            f"{FIG10_11_REFERENCE[op][k]!r})" for k, v in got.items()))
+
+
 def paper_measurements(ks, levels, card=None) -> dict:
     """The paper's Sections 3-5 on the card: Figs. 2-9 and Table 1 on cuda
     and cpu, fits equal; Figs. 10-11 at full width with K1's and K2's
@@ -957,14 +1130,6 @@ def paper_measurements(ks, levels, card=None) -> dict:
 
     m = blue_waters_machine(FULL["torus"])
     captured = {name: [] for name in ("segment_reduce", "queue_walk")}
-    real = {name: getattr(ks, name) for name in captured}
-
-    def spy(name):
-        def call(*args):
-            captured[name].append(args)
-            return real[name](*args)
-        return call
-
     runs = {}
     for op in ("spmv", "spgemm"):
         (tagged, t_bind) = sync_time(lambda: amg_tagged(levels, op, m))
@@ -972,15 +1137,10 @@ def paper_measurements(ks, levels, card=None) -> dict:
         arrivals, t_arr = sync_time(lambda: [
             ph.random_arrival_order(np.random.default_rng(0))
             for ph in phases])
-        for name in real:
-            setattr(ks, name, spy(name))
-        try:
-            ks.reset_launches()
-            g = price_fig10_11(phases, arrivals, card)
-            launches = dict(ks.LAUNCHES)
-        finally:
-            for name, fn in real.items():
-                setattr(ks, name, fn)
+        g, _, launches, cap, _ = counted_kernels(
+            ks, lambda: price_fig10_11(phases, arrivals, card))
+        for name in captured:
+            captured[name] += cap[name]
         c = price_fig10_11(phases, arrivals, "cpu")
         same_steps(g["steps"], c["steps"], f"Figs. 10-11 {op}")
         for k in ("measured", *MODEL_LEVELS):
@@ -1027,6 +1187,8 @@ def paper_measurements(ks, levels, card=None) -> dict:
         f"version (max abs err {max(e for e, _ in k1):.3g}, worst "
         f"{max(r for _, r in k1):.3g} of the bound), K2 {len(k2)} bit-equal "
         f"({sum(c[0].numel() for c in captured['queue_walk'])} arrivals)")
+
+    reference_setup_fig10_11(card)
 
     # the per-phase entries against row 0 of the stacked results
     spmv = runs["spmv"]
@@ -1164,7 +1326,309 @@ def registry_sweep(ks, clock_hz, card=None) -> dict:
     return out
 
 
-# -- phase 10: kernel figures ------------------------------------------------
+# -- phase 8: delta re-pricing ------------------------------------------------
+
+def replay_moves(A, machine, moves, n_procs, level, device):
+    """Walk recorded candidates (``(starts, cost, accepted)`` per move, in
+    order) through the port's delta path on ``device``, following the
+    recorded accept decisions.  Returns per move the port's cost (NaN where
+    the move was never priced) and whether the port's own search would
+    accept it, then the final ``DeltaStack``, its ``SpmvPatternState`` and
+    the initial message count."""
+    from repro_torch.comm.delta import DeltaStack
+    from repro_torch.core.models import phase_cost_many
+    from repro_torch.sparse import (RowPartition, SpmvPatternState,
+                                    spmv_comm_pattern_delta)
+
+    state = SpmvPatternState.build(A, RowPartition.balanced(A.n_rows,
+                                                            n_procs))
+    n_msgs = state.src.size
+    delta = DeltaStack.from_phases([state.pattern.bind(machine)],
+                                   device=device)
+    cost = phase_cost_many(delta, level=level)[0].total
+    out = []
+    for starts, want, accepted in moves:
+        if want is None or np.isnan(want):
+            out.append((float("nan"), False))
+            continue
+        rm, add, cand_state = spmv_comm_pattern_delta(state, starts)
+        cand = delta.apply(rm, {0: add})
+        c = phase_cost_many(cand, level=level)[0].total
+        out.append((c, c < cost))
+        if accepted:
+            state, delta, cost = cand_state, cand, c
+    return out, delta, state, n_msgs
+
+
+def reference_moves(n_rows: int):
+    """``DELTA_REFERENCE`` as ``(boundary, shift, starts, cost, accepted)``:
+    each candidate partition rebuilt from the balanced one through the
+    recorded accept decisions (the proposals are the seed's alone)."""
+    from repro_torch.sparse import RowPartition
+
+    starts = RowPartition.balanced(n_rows, DELTA_BENCH["n_procs"]).starts
+    out = []
+    for b, d, cost, accepted in DELTA_REFERENCE:
+        cand = starts.copy()
+        cand[b] += d
+        out.append((b, d, cand, cost, accepted))
+        if accepted:
+            starts = cand
+    return out
+
+
+def search_fork(moves, want, initial: float, what: str) -> int:
+    """Hold a search's moves (``Move`` objects) to ``want`` (``(boundary,
+    shift, starts, cost, accepted)`` tuples, ``initial`` their initial
+    cost): the same proposals, and the same candidates, accept decisions
+    and costs (rtol 1e-4) up to the first move decided otherwise, which must
+    be a near-tie (``want``'s cost within rtol 1e-4 of its current cost).
+    Returns that move's index (the number of moves when none forks)."""
+    if len(moves) != len(want):
+        raise AssertionError(f"{what}: {len(moves)} moves, expected "
+                             f"{len(want)}")
+    fork, current = len(want), initial
+    for i, (mv, (b, d, starts, cost, accepted)) in enumerate(zip(moves,
+                                                                want)):
+        if (mv.boundary, mv.shift) != (b, d):
+            raise AssertionError(f"{what}: move {i} proposes "
+                                 f"{(mv.boundary, mv.shift)}, expected "
+                                 f"{(b, d)}")
+        if fork < len(want):
+            continue
+        if not np.array_equal(mv.starts, starts):
+            raise AssertionError(f"{what}: move {i} has another candidate")
+        if cost is None or np.isnan(cost):
+            if not np.isnan(mv.cost):
+                raise AssertionError(f"{what}: move {i} was priced")
+            continue
+        np.testing.assert_allclose(mv.cost, cost, rtol=RTOL,
+                                   err_msg=f"{what}: move {i}")
+        if mv.accepted != accepted:
+            if abs(cost - current) > RTOL * current:
+                raise AssertionError(
+                    f"{what}: move {i} accepted={mv.accepted} against "
+                    f"{accepted} with a margin of "
+                    f"{(cost - current) / current:.3g}")
+            fork = i
+            log(f"  {what}: forks at move {i}, a near-tie (relative "
+                f"margin {(cost - current) / current:.3g})")
+        elif accepted:
+            current = cost
+    return fork
+
+
+def delta_repricing(ks, levels, clock_hz, card=None) -> dict:
+    """Delta re-pricing on the card (``card``, ``None`` = CUDA), with K1's
+    and K2's counts set to 0 before each search and every K1/K2 input
+    captured and held to its plain version:
+
+    (a) ``benchmarks/bench_delta.py``'s search, uncut, on the card and on
+        cpu, held to each other and to the reference's 64 recorded costs
+        and accept decisions (``DELTA_REFERENCE``), also by replaying the
+        reference's candidates through the port's delta path;
+    (b) a full-width search on level 0 of phase 4's hierarchy (8,192 ranks
+        of ``blue_waters_machine((8, 8, 4))``, 64 moves), timed against a
+        rebuild of the same candidates on the card (fresh pattern, bind,
+        ``phase_cost_many``);
+    (c) a few ``verify=True`` applies on the full-width search's final
+        arena and one ``simulate_many`` with random arrivals on it, held to
+        a fresh ``PhaseStack``.
+
+    No fresh arena may be built during a search.  Returns, per kernel, its
+    launches on the phase and its calls' summed times and bound."""
+    from repro_torch.comm.stack import PhaseStack
+    from repro_torch.core.models import phase_cost_many
+    from repro_torch.net.machine import blue_waters_machine
+    from repro_torch.net.simulator import simulate_many
+    from repro_torch.sparse import (RowPartition, elasticity_like_3d,
+                                    optimize_partition, spmv_comm_pattern,
+                                    spmv_comm_pattern_delta)
+
+    launches = {"segment_reduce": 0, "queue_walk": 0}
+    captured = {"segment_reduce": [], "queue_walk": []}
+
+    def counted(fn, what, arenas=0):
+        out, wall, n, cap, builds = counted_kernels(ks, fn)
+        if builds != arenas:
+            raise AssertionError(f"{what} built {builds} PhaseStacks, "
+                                 f"expected {arenas}")
+        for k in launches:
+            launches[k] += n[k]
+            captured[k] += cap[k]
+        return out, wall, n
+
+    # (a) the reference benchmark's search
+    cfg = DELTA_BENCH
+    A = elasticity_like_3d(cfg["nx"])
+    m = blue_waters_machine(cfg["torus"])
+    kw = {k: cfg[k] for k in ("n_procs", "moves", "seed", "level")}
+    want = reference_moves(A.n_rows)
+    sync_time(lambda: optimize_partition(A, m, device=card, **kw))  # warm-up
+    gpu, t_gpu, n_gpu = counted(
+        lambda: optimize_partition(A, m, device=card, **kw),
+        "the bench_delta search")
+    cpu, t_cpu = sync_time(lambda: optimize_partition(A, m, device="cpu",
+                                                      **kw))
+    if not n_gpu["segment_reduce"]:
+        raise AssertionError("the bench_delta search did not reach K1")
+    np.testing.assert_allclose([gpu.initial_cost, cpu.initial_cost],
+                               DELTA_REFERENCE_INITIAL, rtol=RTOL)
+    forks = {"cuda": search_fork(gpu.moves, want, DELTA_REFERENCE_INITIAL,
+                                 "cuda search vs the reference"),
+             "cpu": search_fork(cpu.moves, want, DELTA_REFERENCE_INITIAL,
+                                "cpu search vs the reference")}
+    as_want = [(mv.boundary, mv.shift, mv.starts, mv.cost, mv.accepted)
+               for mv in cpu.moves]
+    forks["cuda vs cpu"] = search_fork(gpu.moves, as_want, cpu.initial_cost,
+                                       "cuda search vs cpu")
+    # the reference's candidates through the port's delta path
+    recorded = [(st, c, acc) for _, _, st, c, acc in want]
+    replays = {}
+    for dev in (card, "cpu"):
+        got, final, _, _ = replay_moves(A, m, recorded, kw["n_procs"],
+                                        kw["level"], dev)
+        if final._fresh_cache is not None:
+            raise AssertionError("the replay built a fresh arena")
+        replays["cpu" if dev == "cpu" else "cuda"] = got
+    compared = 0
+    current = DELTA_REFERENCE_INITIAL
+    for i, (_, _, _, cost, accepted) in enumerate(want):
+        for dev, got in replays.items():
+            np.testing.assert_allclose(got[i][0], cost, rtol=RTOL,
+                                       err_msg=f"replay on {dev}, move {i}")
+            if abs(cost - current) > RTOL * current and \
+                    got[i][1] != accepted:
+                raise AssertionError(f"replay on {dev}, move {i}: accept "
+                                     f"{got[i][1]} against {accepted}")
+        compared += abs(cost - current) > RTOL * current
+        if accepted:
+            current = cost
+    log(f"delta bench_delta setup: elasticity_like_3d({cfg['nx']}) "
+        f"({A.n_rows} rows) over {kw['n_procs']} ranks of "
+        f"blue_waters_machine({cfg['torus']}), {kw['moves']} moves: cuda "
+        f"{t_gpu:.3f} s ({gpu.n_accepted} accepted, cost "
+        f"{gpu.initial_cost:.9g} -> {gpu.cost:.9g}), cpu {t_cpu:.3f} s "
+        f"({cpu.n_accepted} accepted); the reference "
+        f"{sum(w[4] for w in want)} accepted, -> {want[-1][3]!r}; searches "
+        f"fork at move {forks} (64 = never); the reference's 64 candidates "
+        f"replayed on cuda and cpu within rtol {RTOL} of its costs, accept "
+        f"decisions equal on the {compared} with a margin above {RTOL}; "
+        f"launches {n_gpu}; no fresh arena built")
+
+    # (b) full width: level 0 of the phase-4 hierarchy
+    A0 = levels[0].A
+    mf = blue_waters_machine(FULL["torus"])
+    kwf = dict(n_procs=min(FULL["max_ranks"], A0.n_rows // 2), moves=64,
+               seed=0, level="contention")
+    full, t_full, n_full = counted(
+        lambda: optimize_partition(A0, mf, device=card, **kwf),
+        "the full-width search")
+    if not n_full["segment_reduce"]:
+        raise AssertionError("the full-width search did not reach K1")
+    priced = [mv for mv in full.moves if not np.isnan(mv.cost)]
+
+    def rebuild():
+        return [phase_cost_many(
+            [spmv_comm_pattern(A0, RowPartition(mv.starts)).bind(mf)],
+            level=kwf["level"], device=card)[0].total for mv in priced]
+
+    rebuilt, t_rebuild = sync_time(rebuild)
+    np.testing.assert_allclose(rebuilt, [mv.cost for mv in priced],
+                               rtol=RTOL, err_msg="full-width rebuild")
+    # the same candidates through the delta path again, to the final arena
+    recorded = [(mv.starts, mv.cost, mv.accepted) for mv in full.moves]
+    (got, final, state, n0), t_replay = sync_time(lambda: replay_moves(
+        A0, mf, recorded, kwf["n_procs"], kwf["level"], card))
+    np.testing.assert_allclose([c for c, _ in got if not np.isnan(c)],
+                               [mv.cost for mv in priced], rtol=RTOL,
+                               err_msg="full-width replay")
+    log(f"delta full width: level 0 of the phase-4 hierarchy, {A0.n_rows} "
+        f"rows over {kwf['n_procs']} ranks of blue_waters_machine("
+        f"{FULL['torus']}): {n0} messages at the start, "
+        f"{full.pattern.n_msgs} at the end; {len(priced)} candidates "
+        f"priced, {full.n_accepted} accepted, cost {full.initial_cost:.9g}"
+        f" -> {full.cost:.9g} ({100 * full.improvement:.4f} %); launches "
+        f"{n_full}")
+    log(f"delta full width timing: delta search {t_full:.3f} s "
+        f"({1e3 * t_full / len(priced):.2f} ms a candidate, setup "
+        f"included); the replay of its candidates through the delta path "
+        f"{t_replay:.3f} s; rebuild of the same candidates on cuda "
+        f"{t_rebuild:.3f} s ({1e3 * t_rebuild / len(priced):.2f} ms a "
+        f"candidate); rebuild / delta {t_rebuild / t_full:.2f}x")
+
+    # (c) verify=True applies and the simulator on the final arena
+    rng = np.random.default_rng(1)
+    starts, checked = state.starts, 0
+    while checked < 3:
+        b = int(rng.integers(1, kwf["n_procs"]))
+        ns = starts.copy()
+        ns[b] += int(rng.choice((-1, 1))) * max(
+            1, A0.n_rows // (8 * kwf["n_procs"]))
+        if not starts[b - 1] < ns[b] < starts[b + 1]:
+            continue
+        rm, add, _ = spmv_comm_pattern_delta(state, ns)
+        final.apply(rm, {0: add}, verify=True)       # check() inside
+        checked += 1
+    arrivals = [final.phases[0].random_arrival_order(
+        np.random.default_rng(0))]
+    # the queue walk binds its one-phase PhaseStack (CommPhase.queue_steps)
+    sims, t_sim, n_sim = counted(
+        lambda: simulate_many(final, arrival_orders=arrivals),
+        "simulate_many on the delta arena", arenas=1)
+    fresh = simulate_many(PhaseStack.build(final.phases, device=card),
+                          arrival_orders=arrivals)
+    same_steps([r.per_proc_queue_steps for r in sims],
+               [r.per_proc_queue_steps for r in fresh], "delta simulate")
+    for f in ("time", "transport", "queue", "contention", "max_link_bytes",
+              "total_net_bytes"):
+        np.testing.assert_allclose([getattr(r, f) for r in sims],
+                                   [getattr(r, f) for r in fresh], rtol=RTOL,
+                                   atol=ATOL, err_msg=f"delta simulate {f}")
+    if final._fresh_cache is not None or not n_sim["queue_walk"]:
+        raise AssertionError(f"the delta simulate built a fresh arena or "
+                             f"missed K2: {n_sim}")
+    log(f"delta verify: {checked} applies with verify=True on the final "
+        f"arena held to a fresh cuda PhaseStack (rtol {RTOL}, steps exact); "
+        f"simulate_many with random arrivals {t_sim:.3f} s, time "
+        f"{sims[0].time:.9g} s against the fresh stack's {fresh[0].time:.9g}"
+        f" s, steps bit-equal; launches {n_sim}")
+
+    k1 = [k1_err(ks, *c) for c in captured["segment_reduce"]]
+    k2 = [k2_check(ks, *c) for c in captured["queue_walk"]]
+    log(f"delta kernel calls: K1 {len(k1)} held to its plain version (max "
+        f"abs err {max(e for e, _ in k1):.3g}, worst "
+        f"{max(r for _, r in k1):.3g} of the bound), K2 {len(k2)} bit-equal "
+        f"({sum(c[0].numel() for c in captured['queue_walk'])} arrivals)")
+    log(f"delta launches: {launches}")
+    prof = {"segment_reduce": device_share(
+                lambda: optimize_partition(A0, mf, device=card, **kwf)),
+            "queue_walk": device_share(
+                lambda: simulate_many(final, arrival_orders=arrivals))}
+    figs = {"segment_reduce": [k1_call_figures(ks, *c)
+                               for c in captured["segment_reduce"]],
+            "queue_walk": [k2_call_figures(ks, *c, clock_hz)
+                           for c in captured["queue_walk"]]}
+    out = {}
+    for name, tag in (("segment_reduce", "seg_"),
+                      ("queue_walk", "count_earlier_smaller")):
+        keys = ("ms", "kernel_ms", "plain_ms", "bound_ms") + (
+            ("library_ms",) if name == "segment_reduce" else ())
+        out[name] = {"launches": launches[name],
+                     **{k: sum(f[k] for f in figs[name]) for k in keys}}
+        rows = prof[name]
+        out[name]["device_ms"] = (sum(us for us, _, key in rows
+                                      if tag in key) / 1e3 if rows else None)
+        log(f"delta {name}: {out[name]} (ms summed over its "
+            f"{launches[name]} calls; device_ms from the profiled rerun of "
+            + ("the full-width search)" if name == "segment_reduce"
+               else "the simulate)"))
+    out["segment_reduce"]["max_abs_err"] = max(e for e, _ in k1)
+    out["queue_walk"]["max_abs_err"] = max(k2)
+    return out
+
+
+# -- phase 11: kernel figures ------------------------------------------------
 
 def k2_chain_ops(ks, posted, arrival, bounds):
     """(ops of the longest region's serial chain, ops of all regions) of
@@ -1797,7 +2261,7 @@ def serve_engine(cfg, model, fa, ssd) -> None:
         log(f"  req {r.uid}: prompt {r.prompt} -> {r.output}")
 
 
-# -- phase 10: K4 and K5 figures --------------------------------------------------
+# -- phase 11: K4 and K5 figures --------------------------------------------------
 
 def k4_call_figures(fa, q, k, v, causal) -> dict:
     """CUDA-event times of one K4 call (the wrapper, the launch alone, the
@@ -1955,17 +2419,21 @@ def main() -> int:
     k3_run = full_vcycle(levels)
     paper_launches = paper_measurements(ks, levels)
     registry = registry_sweep(ks, clock_mhz * 1e6)
+    delta = delta_repricing(ks, levels, clock_mhz * 1e6)
     small_model()
     model_run = full_model()
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
-    for row in rows:            # K1 and K2: their calls on the registry sweep
-        row["registry"] = registry[row["name"]]
+    for row in rows:        # K1 and K2: their calls on the registry sweep
+        row["registry"] = registry[row["name"]]      # and on delta re-pricing
+        row["delta"] = delta[row["name"]]
     rows.append(k3_row(*k3_run))
     rows.extend(model_kernel_rows(*model_run))
     log(f"paper measurements launches (Figs. 10-11 at full width): "
         f"{paper_launches}")
     log("registry sweep launches: " + ", ".join(
         f"{k} {v['launches']}" for k, v in registry.items()))
+    log("delta re-pricing launches: " + ", ".join(
+        f"{k} {v['launches']}" for k, v in delta.items()))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -39,16 +39,34 @@ from .primitives import (active_senders_per_node, flat_orders,
                          group_by_receiver, grouped_queue_steps,
                          transport_times)
 
-__all__ = ["PhaseStack", "StackSimArrays", "as_stack"]
+__all__ = ["PhaseStack", "StackSimArrays", "as_stack", "put_column"]
 
 
-def as_stack(phases, device=None) -> "PhaseStack":
-    """The arena for a sweep: an already-built stack passes through (its own
-    device rules), anything else is stacked on ``device`` (``None`` =
+def as_stack(phases, device=None):
+    """The arena for a sweep: an already-built arena (a :class:`PhaseStack`
+    or a :class:`~repro_torch.comm.delta.DeltaStack`) passes through (its
+    own device rules), anything else is stacked on ``device`` (``None`` =
     CUDA)."""
-    if isinstance(phases, PhaseStack):
+    from .delta import ARENA_TYPES          # delta imports this module
+    if isinstance(phases, ARENA_TYPES):
         return phases
     return PhaseStack.build(phases, device=device)
+
+
+def put_column(a, what: str, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``: float64 as float32, int64 as int32
+    (raising :class:`~repro_torch.comm.guard.ArenaOverflowError` when a
+    value lies outside int32)."""
+    a = np.asarray(a)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    elif a.dtype == np.int64:
+        if a.size and (a.max() > 2 ** 31 - 1 or a.min() < -2 ** 31):
+            raise ArenaOverflowError(
+                f"arena column {what!r} exceeds int32 range; split the "
+                "sweep into smaller stacks")
+        a = a.astype(np.int32)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 #: Per-message arrays concatenated into the arena, in CommPhase field order.
@@ -162,19 +180,8 @@ class PhaseStack:
         return {}
 
     def _put(self, a: np.ndarray, what: str) -> torch.Tensor:
-        """A host array on the stack's device: float64 as float32, int64 as
-        int32 (raising :class:`~repro_torch.comm.guard.ArenaOverflowError`
-        when a value lies outside int32)."""
-        a = np.asarray(a)
-        if a.dtype == np.float64:
-            a = a.astype(np.float32)
-        elif a.dtype == np.int64:
-            if a.size and (a.max() > 2 ** 31 - 1 or a.min() < -2 ** 31):
-                raise ArenaOverflowError(
-                    f"arena column {what!r} exceeds int32 range; split the "
-                    "sweep into smaller stacks")
-            a = a.astype(np.int32)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A host array on the stack's device (:func:`put_column`)."""
+        return put_column(a, what, self.device)
 
     def _dev(self, name: str) -> torch.Tensor:
         """The named per-message column, moved to the device once."""

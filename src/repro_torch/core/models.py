@@ -280,21 +280,28 @@ def phase_cost_many(phases, level: str = "contention",
     set) in one call.
 
     ``phases`` is a sequence of bound phases on one machine, stacked on
-    ``device`` (``None`` = CUDA), or an already-built
-    :class:`~repro_torch.comm.stack.PhaseStack` (priced on its own device).
-    ``params`` substitutes another table — a fitted one — for the
-    machine's own.
+    ``device`` (``None`` = CUDA), or an already-built arena — a
+    :class:`~repro_torch.comm.stack.PhaseStack` or a
+    :class:`~repro_torch.comm.delta.DeltaStack`, priced on its own device
+    (a ``DeltaStack`` from its incremental caches).  ``params`` substitutes
+    another table — a fitted one — for the machine's own.
     """
     if level not in MODEL_LEVELS:
         raise ValueError(f"unknown model level {level!r}")
-    return _stack_costs(as_stack(phases, device), level, params)
+    stack = as_stack(phases, device)
+    if stack.n_phases == 0:                    # an empty DeltaStack
+        return []
+    return _stack_costs(stack, level, params)
 
 
 def model_ladder_many(phases, params: CommParams | None = None,
                       device=None) -> list[dict[str, CostBreakdown]]:
     """Evaluate the full model ladder on a sweep of phases: the arena is
-    stacked once and swept once per ladder level."""
+    stacked once and swept once per ladder level (a ``PhaseStack`` or
+    ``DeltaStack`` passes straight through)."""
     stack = as_stack(phases, device)
+    if stack.n_phases == 0:                    # an empty DeltaStack
+        return []
     out: list[dict[str, CostBreakdown]] = [{} for _ in range(stack.n_phases)]
     agg_cache: dict = {}
     for lvl in MODEL_LEVELS:

@@ -174,8 +174,10 @@ def simulate_many(phases, recv_post_orders=None, arrival_orders=None,
     candidate set) in one call.
 
     ``phases`` is a sequence of bound phases on one machine, stacked on
-    ``device`` (``None`` = CUDA), or an already-built
-    :class:`~repro_torch.comm.stack.PhaseStack`.  ``recv_post_orders[i]`` /
+    ``device`` (``None`` = CUDA), or an already-built arena (a
+    :class:`~repro_torch.comm.stack.PhaseStack`, or a
+    :class:`~repro_torch.comm.delta.DeltaStack` serving transport and
+    contention from its caches).  ``recv_post_orders[i]`` /
     ``arrival_orders[i]`` apply to phase ``i``.  ``noise`` multiplies each
     non-empty phase's time by a lognormal factor from one shared numpy
     ``rng`` (default ``np.random.default_rng(0)``, created once per call).
@@ -183,6 +185,8 @@ def simulate_many(phases, recv_post_orders=None, arrival_orders=None,
     if noise > 0.0 and rng is None:
         rng = np.random.default_rng(0)
     stack = as_stack(phases, device)
+    if stack.n_phases == 0:                    # an empty DeltaStack
+        return []
     out = _simulate_stack(stack, recv_post_orders, arrival_orders)
     if noise > 0.0:
         for r, ph in zip(out, stack.phases):

@@ -8,8 +8,15 @@ C = A B fetches the B rows behind those columns (12 bytes a nonzero).
 :class:`~repro_torch.comm.phase.CommPhase` and :func:`stack_patterns` a
 sweep of them into one :class:`~repro_torch.comm.stack.PhaseStack`.
 
-Port note: pattern extraction is host numpy; only :func:`stack_patterns`
-(and the entry points a pattern feeds) put anything on the device.
+A boundary-shift move on the partition changes only the messages of the two
+adjacent processes: :class:`SpmvPatternState` and
+:func:`spmv_comm_pattern_delta` re-derive exactly those, as the
+``(removed, added)`` delta :meth:`repro_torch.comm.delta.DeltaStack.apply`
+takes.
+
+Port note: pattern extraction and the incremental state are host numpy;
+only :func:`stack_patterns` (and the entry points a pattern feeds) put
+anything on the device.
 """
 from __future__ import annotations
 
@@ -169,3 +176,202 @@ def spgemm_comm_pattern(A: CSR, B: CSR, part: RowPartition) -> CommPattern:
                        dst=(uniq % part.n_procs).astype(np.int64),
                        size=sums * SPGEMM_NNZ_BYTES,
                        n_procs=part.n_procs)
+
+
+# -- incremental SpMV pattern re-derivation ----------------------------------
+#
+# A local-search move on the row partition (shift one boundary) changes the
+# ownership of a handful of rows — and therefore only the messages that
+# involve the two adjacent processes.  ``SpmvPatternState`` keeps the
+# partition-independent needs of every process (the distinct columns its rows
+# touch) as one sorted packed array, so a move re-derives exactly the
+# affected messages:
+#
+# * the *requester* side — messages **to** a changed process — from that
+#   process's recomputed need set (O(its rows' nnz));
+# * the *owner* side — messages **from** a changed process to everyone else —
+#   by counting each unchanged process's needs inside the mover's new
+#   contiguous row range: two ``searchsorted`` probes per process on the
+#   packed (process, column) array, no nnz traversal at all.
+#
+# The returned (removed indices, added messages) pair feeds
+# :meth:`repro_torch.comm.delta.DeltaStack.apply` directly; survivors keep
+# their arena positions, additions append — the delta arena and the state
+# stay in lockstep message order.
+
+@dataclasses.dataclass(frozen=True)
+class SpmvPatternState:
+    """Incrementally-maintained SpMV halo-exchange pattern for one matrix.
+
+    ``pairs`` holds every distinct (row-owner process ``q``, column ``c``)
+    pair — including locally-owned columns, because a boundary move can turn
+    a local column remote — packed as ``q * n_cols + c`` and globally
+    sorted; ``seg[q]:seg[q+1]`` is process ``q``'s slice.  ``src/dst/size``
+    mirror the live message order of the delta arena built from this state.
+
+    Successor states created by :func:`spmv_comm_pattern_delta` carry the
+    splice of the changed processes' need segments *lazily*: candidate
+    evaluation never touches it, so a rejected candidate's state costs
+    nothing beyond its own message delta; the splice resolves on first
+    access (i.e. when an accepted state is searched from).
+    """
+
+    A: CSR
+    starts: np.ndarray       # [P+1] current partition boundaries
+    src: np.ndarray          # current messages, arena order
+    dst: np.ndarray
+    size: np.ndarray
+    # resolved form {"pairs": ..., "seg": ...}, or the deferred splice
+    # {"parent": state, "changed": ..., "segs_new": ...}
+    _box: dict = dataclasses.field(repr=False, compare=False,
+                                   default_factory=dict)
+
+    @classmethod
+    def build(cls, A: CSR, part: RowPartition) -> "SpmvPatternState":
+        """Full derivation (the one-time cost a fresh pattern also pays)."""
+        starts = np.asarray(part.starts, dtype=np.int64)
+        P = part.n_procs
+        rows = np.repeat(np.arange(A.n_rows), A.row_lengths())
+        req = part.owner_of(rows).astype(np.int64)
+        pairs = np.unique(req * A.n_cols + A.indices)
+        seg = np.searchsorted(pairs, np.arange(P + 1) * A.n_cols)
+        src, dst, size = _pairs_to_messages(pairs, starts, A.n_cols, P)
+        return cls(A=A, starts=starts, src=src, dst=dst, size=size,
+                   _box={"pairs": pairs, "seg": seg})
+
+    def _resolve(self) -> dict:
+        box = self._box
+        if "pairs" not in box:
+            parent = box.pop("parent")
+            changed = box.pop("changed")
+            segs_new = box.pop("segs_new")
+            P = self.n_procs
+            parts, prev = [], 0
+            for q in changed:
+                parts.append(parent.pairs[parent.seg[prev]:parent.seg[q]])
+                parts.append(segs_new[int(q)])
+                prev = int(q) + 1
+            parts.append(parent.pairs[parent.seg[prev]:])
+            box["pairs"] = np.concatenate(parts)
+            box["seg"] = np.searchsorted(box["pairs"],
+                                         np.arange(P + 1) * self.A.n_cols)
+        return box
+
+    @property
+    def pairs(self) -> np.ndarray:
+        return self._resolve()["pairs"]
+
+    @property
+    def seg(self) -> np.ndarray:
+        return self._resolve()["seg"]
+
+    @property
+    def n_procs(self) -> int:
+        return len(self.starts) - 1
+
+    @property
+    def part(self) -> RowPartition:
+        return RowPartition(self.starts)
+
+    @property
+    def pattern(self) -> CommPattern:
+        """The current messages as a :class:`CommPattern` (arena order)."""
+        return CommPattern(self.src, self.dst, self.size, self.n_procs)
+
+
+def _pairs_to_messages(pairs, starts, n_cols, P):
+    """Messages per distinct (owner -> requester) pair, sorted by (src, dst)
+    — the same derivation and order as :func:`spmv_comm_pattern`."""
+    if pairs.size == 0:
+        return (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64),
+                np.zeros(0))
+    q = pairs // n_cols
+    col = pairs % n_cols
+    owner = np.searchsorted(starts, col, side="right") - 1
+    off = owner != q
+    key = owner[off] * P + q[off]
+    uniq, counts = np.unique(key, return_counts=True)
+    return ((uniq // P).astype(np.int64), (uniq % P).astype(np.int64),
+            counts.astype(np.float64) * SPMV_ENTRY_BYTES)
+
+
+def spmv_comm_pattern_delta(state: SpmvPatternState, new_starts
+                            ) -> tuple[np.ndarray, tuple, "SpmvPatternState"]:
+    """Re-derive only the messages a partition change affects.
+
+    Returns ``(removed_idx, (src, dst, size), new_state)``: the indices (into
+    the state's — and the delta arena's — current message order) of every
+    message that involves a process whose row range changed, the replacement
+    messages for those processes, and the successor state.  Functional: the
+    input state is untouched, so a rejected candidate is discarded for free.
+    The surviving + added message multiset always equals a fresh
+    :func:`spmv_comm_pattern` under ``new_starts``.
+    """
+    A = state.A
+    starts = state.starts
+    P = state.n_procs
+    new_starts = np.asarray(new_starts, dtype=np.int64)
+    if new_starts.shape != starts.shape:
+        raise ValueError("new_starts must keep the process count fixed")
+    if (new_starts[0] != 0 or new_starts[-1] != A.n_rows
+            or (np.diff(new_starts) < 0).any()):
+        raise ValueError("new_starts must be a non-decreasing partition of "
+                         f"[0, {A.n_rows}]")
+    changed = np.nonzero((starts[:-1] != new_starts[:-1])
+                         | (starts[1:] != new_starts[1:]))[0]
+    empty = (np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64),
+             np.zeros(0))
+    if changed.size == 0:
+        return np.zeros(0, dtype=np.int64), empty, state
+    cmask = np.zeros(P, dtype=bool)
+    cmask[changed] = True
+    removed_idx = np.nonzero(cmask[state.src] | cmask[state.dst])[0]
+
+    # recompute the need segments of the changed processes only
+    segs_new = {}
+    for q in changed:
+        r0, r1 = int(new_starts[q]), int(new_starts[q + 1])
+        cols_q = np.unique(A.indices[A.indptr[r0]:A.indptr[r1]])
+        segs_new[int(q)] = int(q) * A.n_cols + cols_q
+
+    add_src, add_dst, add_size = [], [], []
+    # requester side: messages *to* each changed process, from its needs
+    for q in changed:
+        cols_q = segs_new[int(q)] - int(q) * A.n_cols
+        owner = np.searchsorted(new_starts, cols_q, side="right") - 1
+        off = owner != q
+        cnt = np.bincount(owner[off], minlength=P)
+        o = np.nonzero(cnt)[0]
+        add_src.append(o)
+        add_dst.append(np.full(o.size, q, dtype=np.int64))
+        add_size.append(cnt[o].astype(np.float64) * SPMV_ENTRY_BYTES)
+    # owner side: messages *from* each changed process to unchanged ones —
+    # count every other process's needs inside the new contiguous row range.
+    # Unchanged processes' segments are identical in the current ``pairs``
+    # array, so the probes run on it directly; the spliced successor array
+    # is deferred (see SpmvPatternState._resolve) and never built for a
+    # candidate that gets rejected.
+    pairs = state.pairs
+    others = np.nonzero(~cmask)[0]
+    base = others * A.n_cols
+    for o in changed:
+        lo, hi = new_starts[o], new_starts[o + 1]
+        cnt = (np.searchsorted(pairs, base + hi)
+               - np.searchsorted(pairs, base + lo))
+        sel = cnt > 0
+        add_src.append(np.full(int(sel.sum()), o, dtype=np.int64))
+        add_dst.append(others[sel])
+        add_size.append(cnt[sel].astype(np.float64) * SPMV_ENTRY_BYTES)
+
+    added = (np.concatenate(add_src) if add_src else empty[0],
+             np.concatenate(add_dst) if add_dst else empty[1],
+             np.concatenate(add_size) if add_size else empty[2])
+    keep = np.ones(state.src.size, dtype=bool)
+    keep[removed_idx] = False
+    new_state = SpmvPatternState(
+        A=A, starts=new_starts,
+        src=np.concatenate([state.src[keep], added[0]]),
+        dst=np.concatenate([state.dst[keep], added[1]]),
+        size=np.concatenate([state.size[keep], added[2]]),
+        _box={"parent": state, "changed": changed, "segs_new": segs_new})
+    return removed_idx, added, new_state

@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.comm.delta import DeltaStack  # noqa: E402
 from repro_torch.comm.phase import CommPhase  # noqa: E402
 from repro_torch.comm.primitives import grouped_queue_steps  # noqa: E402
 from repro_torch.comm.stack import PhaseStack  # noqa: E402
@@ -33,7 +34,7 @@ from repro_torch.nn import (decode_step, forward_logits,  # noqa: E402
                             params_to_numpy, prefill)
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.sparse import (DeviceHierarchy, build_hierarchy,  # noqa: E402
-                                poisson_3d, vcycle)
+                                optimize_partition, poisson_3d, vcycle)
 from repro_torch.sparse.partition import CommPattern  # noqa: E402
 from repro_torch.workloads import Scenario, sweep  # noqa: E402
 
@@ -59,9 +60,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr + res.stdout
     # every module was imported: the V-cycle's and K3's, the model
-    # slice's (nn, configs, launch, serve, K4, K5) and the workload
-    # registry's among them
-    assert int(res.stdout.split()[-1]) >= 53
+    # slice's (nn, configs, launch, serve, K4, K5), the workload
+    # registry's and delta re-pricing's (comm.delta, sparse.optimize)
+    # among them
+    assert int(res.stdout.split()[-1]) >= 55
 
 
 # Reads the reference package's ``__init__`` as text (its ``__all__`` and
@@ -109,13 +111,17 @@ print(" ".join(left))
 @pytest.mark.parametrize("pkg,must,extra", [
     ("comm", ("best_strategy_many", "PhaseStack", "CommPhase",
               "grouped_queue_steps", "per_proc_sums", "PatternError",
-              "validate_phase"), ()),
+              "validate_phase", "DeltaStack", "ARENA_TYPES",
+              "message_delta", "pattern_fingerprint", "phase_fingerprint"),
+     ()),
     ("core", ("phase_cost_many", "CommParams", "TorusTopology", "phase_cost",
               "sequence_cost", "fit_alpha_beta"), ()),
     ("net", ("simulate_many", "blue_waters_machine", "MachineSpec",
              "simulate", "simulate_phase", "pingpong_sweep",
              "contention_line_test"), ()),
-    ("sparse", ("spmv_comm_pattern", "spgemm_comm_pattern", "CSR"),
+    ("sparse", ("spmv_comm_pattern", "spgemm_comm_pattern", "CSR",
+                "SpmvPatternState", "spmv_comm_pattern_delta", "Move",
+                "OptimizeResult", "optimize_partition"),
      ("DeviceHierarchy",)),
     ("configs", ("ARCH_IDS", "get_config", "all_configs", "SHAPES",
                  "all_cells"), ()),
@@ -162,6 +168,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
                     n_stages=2, n_microbatches=1)
     for call in (lambda: phase_cost(m.params, ph.src, ph.dst, ph.size,
                                     ph.loc),
+                 lambda: DeltaStack.from_phases([ph]),
+                 lambda: optimize_partition(poisson_3d(4), m, n_procs=4,
+                                            moves=2),
                  lambda: simulate_phase(m, [0], [40], [8.0]),
                  lambda: pingpong_sweep(m, "inter_node", [8.0, 64.0]),
                  lambda: ph.queue_steps(arrival_order={40: np.array([0])}),
@@ -181,6 +190,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert ph.queue_steps(device="cpu").sum() == ph.n_msgs
     row, = sweep([tiny], {"blue_waters": m}, device="cpu")
     assert (row.n_msgs, row.degraded) == (1, False)
+    assert DeltaStack.from_phases([ph], device="cpu").device.type == "cpu"
+    assert optimize_partition(poisson_3d(4), m, n_procs=4, moves=2,
+                              device="cpu").cost > 0
 
 
 def test_vcycle_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
