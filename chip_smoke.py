@@ -83,13 +83,26 @@ Phases, in order (any failure raises and the script exits non-zero):
    of the same candidates (the ratio printed); ``verify=True`` applies and
    one ``simulate_many`` with random arrivals on its final arena, held to a
    fresh ``PhaseStack``;
-9. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
+9. the strategy service (``repro_torch.serve.StrategyService``) on cuda:
+   the six level patterns of phase 4 cold (K1's and K2's counts set to 0
+   just before, every K1/K2 input captured and held to its plain version,
+   the verdicts held to phase 4's), warm (no launch, bit-equal), after
+   ``restore(snapshot())`` on a fresh service, and ``reprice`` of level 0
+   to phase 8's full-width search result (held to ``best_strategy_many``
+   of the mutated phase); fault drills (``kernel.segment_reduce:raise``
+   answered with error results, the breaker open and the next batch shed
+   with ``BackendUnavailable`` and no K1 launch, the half-open probe
+   closing it; ``Overloaded`` and ``DeadlineExceeded``); 4 threads
+   querying the registry's 21 rows at once, held to the serial run; the
+   wall split, the warm and restore walls, reprice against a cold query
+   and the device-busy share of a profiled cold query;
+10. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
    width cut to 2 layers, then the smoke configs of tinyllama-1.1b,
    starcoder2-3b (gelu, layernorm) and qwen3-32b (qk-norm), float32
    weights, one 256-token prompt, ``prefill`` (one K4 launch a layer) then
    8 greedy ``decode_step`` calls on cuda and on cpu — logits within 1e-4
    relative L2, the same tokens;
-10. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
+11. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
    random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
    tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
    and K5's counts set to 0 just before (32 launches each, one a layer, all
@@ -99,10 +112,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    memory and the device busy share of a profiled prefill; then
    ``ServeEngine`` at full width (4 slots, 6 seeded requests of 2-7 prompt
    tokens, 8 new tokens each);
-11. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
-   (K1's and K2's rows add ``registry`` and ``delta``: their launches on
-   phase 7's sweep and on phase 8, with their calls' times and bound summed
-   as below), worst error
+12. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
+   (K1's and K2's rows add ``registry``, ``delta`` and ``service``: their
+   launches on phase 7's sweep, on phase 8 and on phase 9's cold query and
+   reprice, with their calls' times and bound summed as below), worst error
    against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
    yardstick, each summed over every call the full-width run made, beside
@@ -112,7 +125,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    its ``path`` ("wgmma"), its TFLOP/s launch alone and ``vs_library``
    (launch alone over SDPA), K5's its ``path`` ("mma.sync 3xTF32"), and
    both their ``tc_launches``;
-12. the card's name and power limit as ``nvidia-smi`` reports them, then,
+13. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -686,7 +699,8 @@ def counted_sweep(ks, fn):
 
 def full_slice(ks):
     """The full-width run, with launches counted and kernel inputs
-    captured; returns (launch counts, captured inputs)."""
+    captured; returns (launch counts, captured inputs, the AMG levels,
+    their patterns, the sweep's verdicts)."""
     from repro_torch.comm import strategies
     from repro_torch.net.machine import blue_waters_machine
 
@@ -724,7 +738,7 @@ def full_slice(ks):
             raise AssertionError(f"{name} was not launched on the full-width "
                                  "run")
     device_share(lambda: strategies.best_strategy_many(pats, m))
-    return launches, captured, levels
+    return launches, captured, levels, pats, verdicts
 
 
 def full_vcycle(levels):
@@ -1418,7 +1432,7 @@ def search_fork(moves, want, initial: float, what: str) -> int:
     return fork
 
 
-def delta_repricing(ks, levels, clock_hz, card=None) -> dict:
+def delta_repricing(ks, levels, clock_hz, card=None):
     """Delta re-pricing on the card (``card``, ``None`` = CUDA), with K1's
     and K2's counts set to 0 before each search and every K1/K2 input
     captured and held to its plain version:
@@ -1436,7 +1450,8 @@ def delta_repricing(ks, levels, clock_hz, card=None) -> dict:
         a fresh ``PhaseStack``.
 
     No fresh arena may be built during a search.  Returns, per kernel, its
-    launches on the phase and its calls' summed times and bound."""
+    launches on the phase and its calls' summed times and bound, and (b)'s
+    final pattern."""
     from repro_torch.comm.stack import PhaseStack
     from repro_torch.core.models import phase_cost_many
     from repro_torch.net.machine import blue_waters_machine
@@ -1625,10 +1640,339 @@ def delta_repricing(ks, levels, clock_hz, card=None) -> dict:
                else "the simulate)"))
     out["segment_reduce"]["max_abs_err"] = max(e for e, _ in k1)
     out["queue_walk"]["max_abs_err"] = max(k2)
+    return out, full.pattern
+
+
+# -- phase 9: the strategy service ------------------------------------------
+
+def _timed_calls(targets):
+    """Wrap each ``(module or class, name)`` function so its calls add
+    their wall seconds to the returned dict (under ``name``); returns
+    (seconds, undo)."""
+    spent = {name: 0.0 for _, name in targets}
+    # the attribute as stored (a classmethod stays one when put back)
+    real = [(mod, name, vars(mod)[name]) for mod, name in targets]
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return call
+
+    for mod, name, _ in real:
+        setattr(mod, name, wrap(name, getattr(mod, name)))
+
+    def undo():
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+    return spent, undo
+
+
+def _same_verdict(got, want, what: str, exact: bool = False) -> None:
+    if (got.model_winner, got.sim_winner) != (want.model_winner,
+                                              want.sim_winner):
+        raise AssertionError(f"{what}: winners {got.model_winner}/"
+                             f"{got.sim_winner} against {want.model_winner}/"
+                             f"{want.sim_winner}")
+    if exact:
+        if (got.model, got.sim) != (want.model, want.sim):
+            raise AssertionError(f"{what}: totals not bit-equal")
+        return
+    for s in want.model:
+        np.testing.assert_allclose([got.model[s], got.sim[s]],
+                                   [want.model[s], want.sim[s]], rtol=RTOL,
+                                   atol=ATOL, err_msg=f"{what}: {s}")
+
+
+def strategy_service(ks, pats, want, drifted, clock_hz, card=None) -> dict:
+    """``repro_torch.serve.StrategyService`` on the card (``card``, ``None``
+    = CUDA):
+
+    (a) the six level patterns of phase 4's hierarchy on
+        ``blue_waters_machine((8, 8, 4))``, cold, with K1's and K2's counts
+        set to 0 just before and every K1/K2 input captured and held to its
+        plain version; held to phase 4's verdicts ``want`` (winners equal,
+        totals within rtol 1e-4); the wall split into validation,
+        fingerprints and the sweep;
+    (b) the same query warm: no launch, the cold numbers bit for bit;
+    (c) a fresh service after ``restore(snapshot())``: all six from cache;
+    (d) ``reprice`` of level 0's pattern to phase 8's full-width search
+        result ``drifted``: ok, not degraded, within 1e-4 of
+        ``best_strategy_many`` of the mutated phase on the card, its K1
+        launches counted, timed against a cold query of ``drifted``;
+    (e) fault drills: ``kernel.segment_reduce:raise`` armed on a fresh
+        uncached batch (one result a pattern, none raises), the breaker
+        open after ``breaker_threshold`` failures and the next batch shed
+        with ``BackendUnavailable`` and no K1 launch, then disarmed, the
+        half-open probe after ``breaker_reset`` closing the breaker with
+        the clean answer; admission ``capacity=1`` (``Overloaded``) and
+        ``timeout=0.0`` (``DeadlineExceeded``);
+    (f) 4 threads, each with its own services, querying the registry's 21
+        rows at once, every verdict held to the serial run;
+    then the device-busy share of a profiled cold query.  Returns, per
+    kernel, its launches on (a) and (d) and their calls' summed times and
+    bound."""
+    import threading
+
+    from repro_torch.comm import delta, faults, guard, strategies
+    from repro_torch.comm.health import BackendUnavailable, reset_health
+    from repro_torch.net.machine import blue_waters_machine
+    from repro_torch.serve import (AdmissionQueue, DeadlineExceeded,
+                                   Overloaded, StrategyService)
+    from repro_torch.workloads import (DEFAULT_SCENARIOS, default_machines,
+                                       scenario_patterns)
+
+    m = blue_waters_machine(FULL["torus"])
+    launches = {"segment_reduce": 0, "queue_walk": 0}
+    captured = {"segment_reduce": [], "queue_walk": []}
+
+    def counted(fn, what):
+        out, wall, n, cap, _ = counted_kernels(ks, fn)
+        for k in launches:
+            launches[k] += n[k]
+            captured[k] += cap[k]
+        return out, wall, n
+
+    def all_ok(results, what, cached=False):
+        for i, r in enumerate(results):
+            if not r.ok or r.degraded or r.cached != cached:
+                raise AssertionError(f"{what}[{i}]: ok {r.ok}, degraded "
+                                     f"{r.degraded}, cached {r.cached}, "
+                                     f"error {r.error!r}")
+
+    # (a) cold
+    svc = StrategyService(m, device=card)
+    spent, undo = _timed_calls([(guard, "validate_phase"),
+                                (delta, "pattern_fingerprint"),
+                                (strategies, "best_strategy_many")])
+    try:
+        cold, t_cold, n_cold = counted(lambda: svc.query_many(pats),
+                                       "cold query")
+    finally:
+        undo()
+    all_ok(cold, "cold query")
+    for lvl, (r, v) in enumerate(zip(cold, want)):
+        _same_verdict(r.verdict, v, f"service level {lvl} vs phase 4")
+    if not (n_cold["segment_reduce"] and n_cold["queue_walk"]):
+        raise AssertionError(f"the cold query missed K1 or K2: {n_cold}")
+    log(f"service cold: {len(pats)} level patterns "
+        f"({sum(p.n_msgs for p in pats)} messages, ranks "
+        f"{[p.n_procs for p in pats]}) on {svc.device}: wall {t_cold:.3f} s "
+        f"= validate {spent['validate_phase']:.4f} s + fingerprint "
+        f"{spent['pattern_fingerprint']:.4f} s + sweep "
+        f"{spent['best_strategy_many']:.3f} s + the rest "
+        f"{t_cold - sum(spent.values()):.4f} s; winners equal phase 4's, "
+        f"totals within rtol {RTOL}; launches {n_cold}")
+
+    # (b) warm
+    warm, t_warm, n_warm = counted(lambda: svc.query_many(pats), "warm")
+    all_ok(warm, "warm query", cached=True)
+    for lvl, (w, c) in enumerate(zip(warm, cold)):
+        _same_verdict(w.verdict, c.verdict, f"warm level {lvl}", exact=True)
+    if any(n_warm.values()):
+        raise AssertionError(f"the warm query launched kernels: {n_warm}")
+    log(f"service warm: wall {1e3 * t_warm:.4f} ms "
+        f"({1e6 * t_warm / len(pats):.2f} us a pattern), cold / warm "
+        f"{t_cold / t_warm:.1f}x; the cold numbers bit for bit; launches "
+        f"{n_warm}")
+
+    # (c) restore
+    snap = svc.snapshot()
+    fresh = StrategyService(m, device=card)
+    n_rest, t_rest = sync_time(lambda: fresh.restore(snap))
+    restored, t_rq, n_rq = counted(lambda: fresh.query_many(pats),
+                                   "restored query")
+    all_ok(restored, "restored query", cached=True)
+    for lvl, (w, c) in enumerate(zip(restored, cold)):
+        _same_verdict(w.verdict, c.verdict, f"restored level {lvl}",
+                      exact=True)
+    if n_rest != len(pats) or any(n_rq.values()):
+        raise AssertionError(f"restore landed {n_rest} entries, query "
+                             f"launched {n_rq}")
+    log(f"service restore: {n_rest} entries ({len(json.dumps(snap))} bytes "
+        f"of snapshot) in {1e3 * t_rest:.3f} ms, then all {len(pats)} from "
+        f"cache in "
+        f"{1e3 * t_rq:.4f} ms, bit-equal, launches {n_rq}")
+
+    # (d) reprice against phase 8's full-width search result
+    arena = delta.DeltaStack.from_phases([pats[0].bind(m)], device=card)
+    removed, added = delta.message_delta(arena.phases[0], drifted)
+    frac = (removed.size + added[0].size) / drifted.n_msgs
+    if frac > svc.drift_threshold:
+        raise AssertionError(f"the full-width drift {frac:.4f} is past the "
+                             "threshold: reprice would rebuild")
+    mutated = arena.apply(removed, {0: added}).phases[0]
+    parts = [(delta.DeltaStack, "from_phases"), (delta, "message_delta"),
+             (delta.DeltaStack, "apply"), (delta, "pattern_fingerprint"),
+             (strategies, "best_strategy_many")]
+    spent, undo = _timed_calls(parts)
+    try:
+        rep, t_rep, n_rep = counted(lambda: svc.reprice(pats[0], drifted),
+                                    "reprice")
+        split_rep = dict(spent)
+        spent.update({k: 0.0 for k in spent})
+        again, t_again = sync_time(lambda: svc.reprice(pats[0], drifted))
+    finally:
+        undo()
+    if not rep.ok or rep.degraded or rep.cached:
+        raise AssertionError(f"reprice: ok {rep.ok}, degraded "
+                             f"{rep.degraded}, cached {rep.cached}, error "
+                             f"{rep.error!r}")
+    ref_v = strategies.best_strategy_many([mutated], m, device=card)[0]
+    _same_verdict(rep.verdict, ref_v, "reprice vs the mutated phase")
+    if not again.cached:
+        raise AssertionError("a second reprice of the same drift missed")
+    cold_new, t_new = sync_time(
+        lambda: StrategyService(m, device=card).query(drifted))
+    log(f"service reprice: level 0 ({pats[0].n_msgs} messages) to the "
+        f"full-width search's result ({drifted.n_msgs}): {removed.size} "
+        f"removed, {added[0].size} added (drift {frac:.5f}); reprice "
+        f"{t_rep:.3f} s (DeltaStack build, apply, a cold sweep of the "
+        f"mutated phase), again {1e3 * t_again:.3f} ms (cache hit), a cold "
+        f"query of the new pattern {t_new:.3f} s; winners "
+        f"{rep.verdict.model_winner}/{rep.verdict.sim_winner}, within "
+        f"rtol {RTOL} of best_strategy_many of the mutated phase; "
+        f"launches {n_rep}")
+    for what, part, wall in (("reprice", split_rep, t_rep),
+                             ("repeat", spent, t_again)):
+        log(f"service {what} split: " + ", ".join(
+            f"{k} {1e3 * v:.2f} ms" for k, v in part.items())
+            + f", the rest {1e3 * (wall - sum(part.values())):.2f} ms")
+
+    # (e) fault drills on a fresh uncached batch: the registry's patterns
+    # on its blue_waters machine
+    bw = default_machines()["blue_waters"]
+    batch = [p for sc in DEFAULT_SCENARIOS for _, p in scenario_patterns(sc)]
+    clean = StrategyService(bw, device=card).query_many(batch)
+    all_ok(clean, "clean drill batch")
+    reset_health()      # the device's breaker is made anew, by the drill's
+    drill = StrategyService(bw, device=card, breaker_threshold=3,
+                            breaker_reset=0.5)
+    outcomes = []
+    with faults.inject("kernel.segment_reduce", "raise") as spec:
+        for k in range(drill.breaker_threshold):
+            res = drill.query_many(batch)
+            if len(res) != len(batch) or any(r.ok for r in res):
+                raise AssertionError(f"drill batch {k}: {res}")
+            outcomes.append(sorted({type(r.error).__name__ for r in res}))
+        state = drill._breaker().state
+        before = ks.LAUNCHES["segment_reduce"]
+        shed = drill.query_many(batch)
+        if state != "open" or ks.LAUNCHES["segment_reduce"] != before or \
+                not all(isinstance(r.error, BackendUnavailable)
+                        for r in shed):
+            raise AssertionError(f"breaker {state}, K1 launches "
+                                 f"{ks.LAUNCHES['segment_reduce'] - before}"
+                                 f" while open, shed {shed}")
+    time.sleep(drill.breaker_reset + 0.1)
+    healed = drill.query_many(batch)
+    all_ok(healed, "the half-open probe")
+    if drill._breaker().state != "closed":
+        raise AssertionError("the probe did not close the breaker")
+    for i, (h, c) in enumerate(zip(healed, clean)):
+        _same_verdict(h.verdict, c.verdict, f"healed pattern {i}")
+    q = AdmissionQueue(capacity=1)
+    busy = StrategyService(bw, device=card, admission=q)
+    q.acquire(1)
+    try:
+        over = busy.query_many(batch)
+    finally:
+        q.release(1)
+    late = StrategyService(bw, device=card, timeout=0.0).query_many(batch)
+    if not (all(isinstance(r.error, Overloaded) for r in over)
+            and all(isinstance(r.error, DeadlineExceeded) for r in late)):
+        raise AssertionError(f"admission drill: {over} / {late}")
+    log(f"service fault drills ({len(batch)} registry patterns on "
+        f"blue_waters): kernel.segment_reduce:raise fired {spec.fired} "
+        f"times, batches answered with {outcomes} and none raised; breaker "
+        f"open after {drill.breaker_threshold} failures, the next batch "
+        f"shed with BackendUnavailable and no K1 launch; disarmed, the "
+        f"probe after {drill.breaker_reset} s closed it with the clean "
+        f"answer; capacity 1 -> Overloaded, timeout 0.0 -> "
+        f"DeadlineExceeded")
+
+    # (f) 4 threads, each with its own services, the 21 registry rows
+    machines = default_machines()
+    names = [(sc.name, ph) for sc in DEFAULT_SCENARIOS
+             for ph, _ in scenario_patterns(sc)]
+
+    def rows():
+        out = {}
+        for mname, mach in machines.items():
+            for (sc, ph), r in zip(names, StrategyService(
+                    mach, device=card).query_many(batch)):
+                out[(mname, sc, ph)] = r
+        return out
+
+    serial, t_serial = sync_time(rows)
+    errors, per_thread = [], [None] * 4
+    barrier = threading.Barrier(4)
+
+    def work(i):
+        try:
+            barrier.wait(timeout=60)
+            per_thread[i] = rows()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    torch.cuda.synchronize()
+    t_threads = time.perf_counter() - t
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"threaded queries failed: {errors}")
+    for key, r in serial.items():
+        all_ok([r], f"serial row {key}")
+        if (r.verdict.model_winner, r.verdict.sim_winner) != \
+                REGISTRY_WINNERS[key]:
+            raise AssertionError(f"service row {key} against the "
+                                 f"reference's {REGISTRY_WINNERS[key]}")
+        for i, got in enumerate(per_thread):
+            all_ok([got[key]], f"thread {i} row {key}")
+            _same_verdict(got[key].verdict, r.verdict,
+                          f"thread {i} row {key}")
+    log(f"service threads: 4 threads x {len(serial)} registry rows at once "
+        f"in {t_threads:.3f} s (serial {t_serial:.3f} s), every verdict held "
+        f"to the serial run and the 42 winners to the reference's")
+
+    prof = device_share(
+        lambda: StrategyService(m, device=card).query_many(pats))
+    k1 = [k1_err(ks, *c) for c in captured["segment_reduce"]]
+    k2 = [k2_check(ks, *c) for c in captured["queue_walk"]]
+    log(f"service kernel calls: K1 {len(k1)} held to its plain version (max "
+        f"abs err {max(e for e, _ in k1):.3g}, worst "
+        f"{max(r for _, r in k1):.3g} of the bound), K2 {len(k2)} bit-equal "
+        f"({sum(c[0].numel() for c in captured['queue_walk'])} arrivals)")
+    log(f"service launches (cold query and reprice): {launches}")
+    figs = {"segment_reduce": [k1_call_figures(ks, *c)
+                               for c in captured["segment_reduce"]],
+            "queue_walk": [k2_call_figures(ks, *c, clock_hz)
+                           for c in captured["queue_walk"]]}
+    out = {}
+    for name, tag in (("segment_reduce", "seg_"),
+                      ("queue_walk", "count_earlier_smaller")):
+        keys = ("ms", "kernel_ms", "plain_ms", "bound_ms") + (
+            ("library_ms",) if name == "segment_reduce" else ())
+        out[name] = {"launches": launches[name],
+                     **{k: sum(f[k] for f in figs[name]) for k in keys}}
+        out[name]["device_ms"] = (sum(us for us, _, key in prof
+                                      if tag in key) / 1e3 if prof else None)
+        log(f"service {name}: {out[name]} (ms summed over its "
+            f"{launches[name]} calls; device_ms from the profiled cold "
+            f"query)")
+    out["segment_reduce"]["max_abs_err"] = max(e for e, _ in k1)
+    out["queue_walk"]["max_abs_err"] = max(k2)
     return out
 
 
-# -- phase 11: kernel figures ------------------------------------------------
+# -- phase 12: kernel figures ------------------------------------------------
 
 def k2_chain_ops(ks, posted, arrival, bounds):
     """(ops of the longest region's serial chain, ops of all regions) of
@@ -2053,7 +2397,7 @@ def k4_k5_parity(dev) -> None:
         f"path")
 
 
-# -- phases 8 and 9: the model ---------------------------------------------------
+# -- phases 10 and 11: the model -------------------------------------------------
 
 def greedy(model, cfg, tokens, steps: int, device, max_seq: int):
     """``prefill`` then ``steps`` greedy ``decode_step`` calls; returns
@@ -2261,7 +2605,7 @@ def serve_engine(cfg, model, fa, ssd) -> None:
         log(f"  req {r.uid}: prompt {r.prompt} -> {r.output}")
 
 
-# -- phase 11: K4 and K5 figures --------------------------------------------------
+# -- phase 12: K4 and K5 figures --------------------------------------------------
 
 def k4_call_figures(fa, q, k, v, causal) -> dict:
     """CUDA-event times of one K4 call (the wrapper, the launch alone, the
@@ -2415,17 +2759,19 @@ def main() -> int:
     k3_parity(dev)
     k4_k5_parity(dev)
     small_vcycle(small_slice())
-    launches, captured, levels = full_slice(ks)
+    launches, captured, levels, pats, verdicts = full_slice(ks)
     k3_run = full_vcycle(levels)
     paper_launches = paper_measurements(ks, levels)
     registry = registry_sweep(ks, clock_mhz * 1e6)
-    delta = delta_repricing(ks, levels, clock_mhz * 1e6)
+    delta, drifted = delta_repricing(ks, levels, clock_mhz * 1e6)
+    service = strategy_service(ks, pats, verdicts, drifted, clock_mhz * 1e6)
     small_model()
     model_run = full_model()
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
-    for row in rows:        # K1 and K2: their calls on the registry sweep
-        row["registry"] = registry[row["name"]]      # and on delta re-pricing
-        row["delta"] = delta[row["name"]]
+    for row in rows:        # K1 and K2: their calls on the registry sweep,
+        row["registry"] = registry[row["name"]]   # on delta re-pricing and
+        row["delta"] = delta[row["name"]]         # on the strategy service
+        row["service"] = service[row["name"]]
     rows.append(k3_row(*k3_run))
     rows.extend(model_kernel_rows(*model_run))
     log(f"paper measurements launches (Figs. 10-11 at full width): "
@@ -2434,6 +2780,8 @@ def main() -> int:
         f"{k} {v['launches']}" for k, v in registry.items()))
     log("delta re-pricing launches: " + ", ".join(
         f"{k} {v['launches']}" for k, v in delta.items()))
+    log("strategy service launches: " + ", ".join(
+        f"{k} {v['launches']}" for k, v in service.items()))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,19 @@
-"""CommPhase, the PhaseStack arena, delta re-pricing, shared primitives and
-strategy rewrites.
+"""CommPhase, the PhaseStack arena, delta re-pricing, shared primitives,
+strategy rewrites, typed validation, fault injection and the health ledger.
 
 Re-exports the names of ``repro.comm``'s ``__all__`` that the port defines
-in the same submodules.  The rest waits for its ROADMAP item: payload
-accounting (3), fault injection and the health ledger (8).
+in the same submodules, and one of its own: :class:`BackendUnavailable`
+(:mod:`repro_torch.comm.health`), what the strategy service answers with
+while a device's circuit breaker is open.  The rest waits for its ROADMAP
+item: payload accounting (3).  ``STACK_BACKENDS`` has no counterpart: the
+port has one backend, the device the caller names.
 """
 from .guard import (PatternError, MessageSizeError, RankError,
                     ArenaOverflowError, validate_messages, validate_phase)
+from .faults import (FaultSpec, InjectedFault, InjectedTimeout, inject,
+                     SITES as FAULT_SITES, MODES as FAULT_MODES)
+from .health import (BackendHealth, BackendUnavailable, CircuitBreaker,
+                     HealthEvent, get_health, reset_health)
 from .phase import CommPhase
 from .primitives import (active_senders_per_node, transport_times,
                          per_proc_sums, group_by_receiver, sum_by_pairs, segmented_arange,
@@ -34,4 +41,8 @@ __all__ = [
     "rewrite", "best_strategy", "best_strategy_many",
     "PatternError", "MessageSizeError", "RankError", "ArenaOverflowError",
     "validate_messages", "validate_phase",
+    "FaultSpec", "InjectedFault", "InjectedTimeout", "inject",
+    "FAULT_SITES", "FAULT_MODES",
+    "BackendHealth", "CircuitBreaker", "HealthEvent", "get_health",
+    "reset_health", "BackendUnavailable",
 ]

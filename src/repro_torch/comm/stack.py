@@ -33,6 +33,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import comm_stack as ks
 
+from . import faults
 from .guard import ArenaOverflowError
 from .phase import CommPhase
 from .primitives import (active_senders_per_node, flat_orders,
@@ -56,7 +57,9 @@ def as_stack(phases, device=None):
 def put_column(a, what: str, device: torch.device) -> torch.Tensor:
     """A host array on ``device``: float64 as float32, int64 as int32
     (raising :class:`~repro_torch.comm.guard.ArenaOverflowError` when a
-    value lies outside int32)."""
+    value lies outside int32).  Passes the fault site
+    ``stack.device_store`` first, which only raises."""
+    faults.fail_point("stack.device_store")
     a = np.asarray(a)
     if a.dtype == np.float64:
         a = a.astype(np.float32)

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -28,6 +29,9 @@ BUILD_DIR = _HERE / "_build"
 SOURCES = {p.stem: p.name for p in sorted(CSRC.glob("*.cu"))}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# serialises builds within a process: two threads making a first call at
+# once would otherwise both compile the same library
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -56,7 +60,16 @@ def build_kernels() -> dict[str, str]:
     """Compile every kernel source that has no library yet, one ``nvcc``
     process per source, all started together.  Returns each compiled
     source's compiler output (``-Xptxas -v``: registers, spills); a failed
-    compile raises with its output after every process has ended."""
+    compile raises with its output after every process has ended.
+
+    A module lock lets one build run at a time in a process: a second
+    caller waits, then finds the libraries built, so two threads making a
+    first call at once cannot compile into the same temporary file."""
+    with _BUILD_LOCK:
+        return _build_missing()
+
+
+def _build_missing() -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for name, src in SOURCES.items():

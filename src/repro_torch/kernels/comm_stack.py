@@ -22,8 +22,10 @@ K2, :func:`queue_walk`
 Each wrapper checks device, dtype, shape, contiguity and index ranges and
 raises on anything else.  A tensor on the CPU takes the plain version; a
 CUDA tensor launches the kernel or raises — there is no fallback.  Every
-launch adds one to :data:`LAUNCHES`, so a run can show that its main path
-went through the kernels.
+launch passes the fault site ``kernel.segment_reduce`` or
+``kernel.queue_walk`` first (:mod:`repro_torch.comm.faults`; an armed site
+raises to the caller) and adds one to :data:`LAUNCHES`, so a run can show
+that its main path went through the kernels.
 
 The kernels are built at first use by :mod:`repro_torch.kernels.build`
 (``nvcc`` into ``_build/``, bound with ``ctypes``); ``build_kernels`` is
@@ -57,6 +59,10 @@ def reset_launches() -> None:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
+    # the fault site ``kernel.<name>`` only raises: nothing catches here and
+    # nothing falls back (comm imports this module, hence the late import)
+    from repro_torch.comm import faults
+    faults.fail_point(f"kernel.{name}")
     launch(kernel(name, name, _ARGTYPES[name]), device, *args)
     LAUNCHES[name] += 1
 

@@ -32,7 +32,7 @@ from repro_torch.net.machine import blue_waters_machine  # noqa: E402
 from repro_torch.nn import (decode_step, forward_logits,  # noqa: E402
                             init_cache, init_params, params_from_numpy,
                             params_to_numpy, prefill)
-from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.serve import ServeEngine, StrategyService  # noqa: E402
 from repro_torch.sparse import (DeviceHierarchy, build_hierarchy,  # noqa: E402
                                 optimize_partition, poisson_3d, vcycle)
 from repro_torch.sparse.partition import CommPattern  # noqa: E402
@@ -48,7 +48,7 @@ for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len([k for k in sys.modules if k.startswith("repro_torch.")]))
+print(" ".join(k for k in sys.modules if k.startswith("repro_torch.")))
 sys.exit("imported: " + ", ".join(bad) if bad else 0)
 """
 
@@ -61,9 +61,14 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr + res.stdout
     # every module was imported: the V-cycle's and K3's, the model
     # slice's (nn, configs, launch, serve, K4, K5), the workload
-    # registry's and delta re-pricing's (comm.delta, sparse.optimize)
-    # among them
-    assert int(res.stdout.split()[-1]) >= 55
+    # registry's, delta re-pricing's (comm.delta, sparse.optimize) and the
+    # strategy service's among them
+    mods = set(res.stdout.split())
+    assert len(mods) >= 60
+    assert {"repro_torch.serve.strategy", "repro_torch.serve.admission",
+            "repro_torch.serve.cache", "repro_torch.comm.health",
+            "repro_torch.comm.faults", "repro_torch.comm.delta",
+            "repro_torch.sparse.optimize"} <= mods
 
 
 # Reads the reference package's ``__init__`` as text (its ``__all__`` and
@@ -112,8 +117,12 @@ print(" ".join(left))
     ("comm", ("best_strategy_many", "PhaseStack", "CommPhase",
               "grouped_queue_steps", "per_proc_sums", "PatternError",
               "validate_phase", "DeltaStack", "ARENA_TYPES",
-              "message_delta", "pattern_fingerprint", "phase_fingerprint"),
-     ()),
+              "message_delta", "pattern_fingerprint", "phase_fingerprint",
+              "FaultSpec", "InjectedFault", "InjectedTimeout", "inject",
+              "FAULT_SITES", "FAULT_MODES", "BackendHealth",
+              "CircuitBreaker", "HealthEvent", "get_health",
+              "reset_health"),
+     ("BackendUnavailable",)),
     ("core", ("phase_cost_many", "CommParams", "TorusTopology", "phase_cost",
               "sequence_cost", "fit_alpha_beta"), ()),
     ("net", ("simulate_many", "blue_waters_machine", "MachineSpec",
@@ -127,7 +136,10 @@ print(" ".join(left))
                  "all_cells"), ()),
     ("workloads", ("sweep", "winner_table", "DEFAULT_SCENARIOS",
                    "moe_a2a_pattern", "tp_collective_patterns",
-                   "pipeline_p2p_pattern"), ())])
+                   "pipeline_p2p_pattern"), ()),
+    ("serve", ("StrategyService", "ServiceResult", "AdmissionQueue",
+               "Deadline", "RetryPolicy", "Overloaded", "DeadlineExceeded",
+               "ArenaCache", "ServeEngine", "Request"), ())])
 def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     # every name of repro.<pkg>.__all__ that the port defines in the
     # counterpart submodule is the same object at repro_torch.<pkg>, and
@@ -141,11 +153,16 @@ def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     assert res.returncode == 0, res.stderr + res.stdout
     ported, left = (line.split() for line in res.stdout.splitlines()[:2])
     assert set(must) <= set(ported), ported
-    if pkg in ("configs", "workloads"):
+    if pkg in ("configs", "workloads", "serve"):
         # the one name left: the pspec cross-check needs the jax sharding
         # tree (ROADMAP queue item 7)
         assert left == (["row_parallel_ops_from_pspecs"]
                         if pkg == "workloads" else []), left
+    if pkg == "comm":
+        # payload accounting waits for ROADMAP item 3; the port has one
+        # backend, so no STACK_BACKENDS
+        assert sorted(left) == ["STACK_BACKENDS", "delivered_payload",
+                                "injected_payload"], left
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
@@ -174,7 +191,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
                  lambda: simulate_phase(m, [0], [40], [8.0]),
                  lambda: pingpong_sweep(m, "inter_node", [8.0, 64.0]),
                  lambda: ph.queue_steps(arrival_order={40: np.array([0])}),
-                 lambda: sweep([tiny], {"blue_waters": m})):
+                 lambda: sweep([tiny], {"blue_waters": m}),
+                 lambda: StrategyService(m)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asked for explicitly, the host runs the plain versions
@@ -193,6 +211,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert DeltaStack.from_phases([ph], device="cpu").device.type == "cpu"
     assert optimize_partition(poisson_3d(4), m, n_procs=4, moves=2,
                               device="cpu").cost > 0
+    assert StrategyService(m, device="cpu").query(pat).ok
 
 
 def test_vcycle_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
