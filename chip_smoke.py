@@ -96,13 +96,31 @@ Phases, in order (any failure raises and the script exits non-zero):
    querying the registry's 21 rows at once, held to the serial run; the
    wall split, the warm and restore walls, reprice against a cold query
    and the device-busy share of a profiled cold query;
-10. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
+10. the execution layer (``repro_torch.exec``) on cuda, each step with
+   K1's and K2's counts set to 0 just before and every K1/K2 input captured
+   and held to its plain version: (a) ``tests/test_exec.py``'s cases (the
+   four 8-rank host presets x their strategies x both colorings, 40
+   messages from seed 11) lowered, run as virtual ranks on the card and
+   held to ``run_reference`` bit for bit, each digest (K1) within rtol
+   1e-4 of the float64 bincount; (b) ``benchmarks/bench_exec.py``'s setup
+   (``lassen_8``, 96 messages from seed 42): a table fitted from sweeps
+   recorded on the card, held to the cpu fit, the measured-vs-predicted
+   table, the pairwise agreement (printed), the launch overhead and greedy
+   ``standard`` against ``per_message`` (at least 1.0); (c) the calibrated
+   agreement of ``bench_exec_agreement`` (``best_strategy_many`` with
+   random arrivals, K2): agreement and crossover 1.0; (d) Figs. 10-11's
+   reference setup, levels 0-3 x the three node-aware strategies, held as
+   in (a); (e) level 0 of phase 4's hierarchy (8,192 ranks, 165,930
+   messages) x the three strategies: plan, executor build and median run
+   timed, buffers and peak memory, the delivered matrix held to the
+   semantic oracle on the card and the digest to the bincount;
+11. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
    width cut to 2 layers, then the smoke configs of tinyllama-1.1b,
    starcoder2-3b (gelu, layernorm) and qwen3-32b (qk-norm), float32
    weights, one 256-token prompt, ``prefill`` (one K4 launch a layer) then
    8 greedy ``decode_step`` calls on cuda and on cpu — logits within 1e-4
    relative L2, the same tokens;
-11. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
+12. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
    random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
    tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
    and K5's counts set to 0 just before (32 launches each, one a layer, all
@@ -112,10 +130,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    memory and the device busy share of a profiled prefill; then
    ``ServeEngine`` at full width (4 slots, 6 seeded requests of 2-7 prompt
    tokens, 8 new tokens each);
-12. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
-   (K1's and K2's rows add ``registry``, ``delta`` and ``service``: their
-   launches on phase 7's sweep, on phase 8 and on phase 9's cold query and
-   reprice, with their calls' times and bound summed as below), worst error
+13. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
+   (K1's and K2's rows add ``registry``, ``delta``, ``service`` and
+   ``exec``: their launches on phase 7's sweep, on phase 8, on phase 9's
+   cold query and reprice and on phase 10, with their calls' times and
+   bound summed as below), worst error
    against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
    yardstick, each summed over every call the full-width run made, beside
@@ -125,7 +144,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    its ``path`` ("wgmma"), its TFLOP/s launch alone and ``vs_library``
    (launch alone over SDPA), K5's its ``path`` ("mma.sync 3xTF32"), and
    both their ``tc_launches``;
-13. the card's name and power limit as ``nvidia-smi`` reports them, then,
+14. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -1303,9 +1322,6 @@ def registry_sweep(ks, clock_hz, card=None) -> dict:
     if not (launches["segment_reduce"] and launches["queue_walk"]):
         raise AssertionError(f"the registry sweep did not reach K1 and K2: "
                              f"{launches}")
-    k1 = [k1_err(ks, *c) for c in captured["segment_reduce"]]
-    k2 = [k2_check(ks, *c) for c in captured["queue_walk"]]
-
     log(winner_table(rows))
     derive = wall - split["rewrite"] - split["pricing"]
     log(f"registry sweep: {len(rows)} rows, {sizes['arena']} messages in "
@@ -1315,29 +1331,9 @@ def registry_sweep(ks, clock_hz, card=None) -> dict:
         f"{split['pricing']:.3f} s (device passes with host order "
         f"assembly); cpu {t_cpu:.3f} s; 42 winners equal on cuda, cpu and "
         f"the reference's table, costs within rtol {RTOL} of cpu")
-    log(f"registry sweep kernel calls: K1 {len(k1)} held to its plain "
-        f"version (max abs err {max(e for e, _ in k1):.3g}, worst "
-        f"{max(r for _, r in k1):.3g} of the bound), K2 {len(k2)} bit-equal "
-        f"({sum(c[0].numel() for c in captured['queue_walk'])} arrivals)")
-    log(f"registry sweep launches: {launches}")
     prof = device_share(lambda: sweep(device=card))
-    figs = {"segment_reduce": [k1_call_figures(ks, *c)
-                               for c in captured["segment_reduce"]],
-            "queue_walk": [k2_call_figures(ks, *c, clock_hz)
-                           for c in captured["queue_walk"]]}
-    out = {}
-    for name, tag in (("segment_reduce", "seg_"),
-                      ("queue_walk", "count_earlier_smaller")):
-        keys = ("ms", "kernel_ms", "plain_ms", "bound_ms") + (
-            ("library_ms",) if name == "segment_reduce" else ())
-        out[name] = {"launches": launches[name],
-                     **{k: sum(f[k] for f in figs[name]) for k in keys}}
-        # None where the profiler saw no device time
-        out[name]["device_ms"] = (sum(us for us, _, key in prof
-                                      if tag in key) / 1e3 if prof else None)
-        log(f"registry sweep {name}: {out[name]} (ms summed over its "
-            f"{launches[name]} calls; device_ms from the profiled rerun)")
-    return out
+    return kernel_sums(ks, "registry sweep", launches, captured, clock_hz,
+                       prof)
 
 
 # -- phase 8: delta re-pricing ------------------------------------------------
@@ -1609,38 +1605,13 @@ def delta_repricing(ks, levels, clock_hz, card=None):
         f"{sims[0].time:.9g} s against the fresh stack's {fresh[0].time:.9g}"
         f" s, steps bit-equal; launches {n_sim}")
 
-    k1 = [k1_err(ks, *c) for c in captured["segment_reduce"]]
-    k2 = [k2_check(ks, *c) for c in captured["queue_walk"]]
-    log(f"delta kernel calls: K1 {len(k1)} held to its plain version (max "
-        f"abs err {max(e for e, _ in k1):.3g}, worst "
-        f"{max(r for _, r in k1):.3g} of the bound), K2 {len(k2)} bit-equal "
-        f"({sum(c[0].numel() for c in captured['queue_walk'])} arrivals)")
-    log(f"delta launches: {launches}")
     prof = {"segment_reduce": device_share(
                 lambda: optimize_partition(A0, mf, device=card, **kwf)),
             "queue_walk": device_share(
                 lambda: simulate_many(final, arrival_orders=arrivals))}
-    figs = {"segment_reduce": [k1_call_figures(ks, *c)
-                               for c in captured["segment_reduce"]],
-            "queue_walk": [k2_call_figures(ks, *c, clock_hz)
-                           for c in captured["queue_walk"]]}
-    out = {}
-    for name, tag in (("segment_reduce", "seg_"),
-                      ("queue_walk", "count_earlier_smaller")):
-        keys = ("ms", "kernel_ms", "plain_ms", "bound_ms") + (
-            ("library_ms",) if name == "segment_reduce" else ())
-        out[name] = {"launches": launches[name],
-                     **{k: sum(f[k] for f in figs[name]) for k in keys}}
-        rows = prof[name]
-        out[name]["device_ms"] = (sum(us for us, _, key in rows
-                                      if tag in key) / 1e3 if rows else None)
-        log(f"delta {name}: {out[name]} (ms summed over its "
-            f"{launches[name]} calls; device_ms from the profiled rerun of "
-            + ("the full-width search)" if name == "segment_reduce"
-               else "the simulate)"))
-    out["segment_reduce"]["max_abs_err"] = max(e for e, _ in k1)
-    out["queue_walk"]["max_abs_err"] = max(k2)
-    return out, full.pattern
+    # K1 from a rerun of the full-width search, K2 of the simulate
+    return kernel_sums(ks, "delta", launches, captured, clock_hz,
+                       prof), full.pattern
 
 
 # -- phase 9: the strategy service ------------------------------------------
@@ -1944,35 +1915,333 @@ def strategy_service(ks, pats, want, drifted, clock_hz, card=None) -> dict:
 
     prof = device_share(
         lambda: StrategyService(m, device=card).query_many(pats))
-    k1 = [k1_err(ks, *c) for c in captured["segment_reduce"]]
-    k2 = [k2_check(ks, *c) for c in captured["queue_walk"]]
-    log(f"service kernel calls: K1 {len(k1)} held to its plain version (max "
-        f"abs err {max(e for e, _ in k1):.3g}, worst "
-        f"{max(r for _, r in k1):.3g} of the bound), K2 {len(k2)} bit-equal "
-        f"({sum(c[0].numel() for c in captured['queue_walk'])} arrivals)")
-    log(f"service launches (cold query and reprice): {launches}")
-    figs = {"segment_reduce": [k1_call_figures(ks, *c)
-                               for c in captured["segment_reduce"]],
-            "queue_walk": [k2_call_figures(ks, *c, clock_hz)
-                           for c in captured["queue_walk"]]}
-    out = {}
-    for name, tag in (("segment_reduce", "seg_"),
-                      ("queue_walk", "count_earlier_smaller")):
-        keys = ("ms", "kernel_ms", "plain_ms", "bound_ms") + (
-            ("library_ms",) if name == "segment_reduce" else ())
-        out[name] = {"launches": launches[name],
-                     **{k: sum(f[k] for f in figs[name]) for k in keys}}
-        out[name]["device_ms"] = (sum(us for us, _, key in prof
-                                      if tag in key) / 1e3 if prof else None)
-        log(f"service {name}: {out[name]} (ms summed over its "
-            f"{launches[name]} calls; device_ms from the profiled cold "
-            f"query)")
-    out["segment_reduce"]["max_abs_err"] = max(e for e, _ in k1)
-    out["queue_walk"]["max_abs_err"] = max(k2)
-    return out
+    return kernel_sums(ks, "service (cold query and reprice)", launches,
+                       captured, clock_hz, prof)
 
 
-# -- phase 12: kernel figures ------------------------------------------------
+# -- phase 10: the execution layer --------------------------------------------
+
+# ``benchmarks/bench_exec.py``'s setup: 96 messages from seed 42, sizes
+# 256-8192, on ``lassen_8``; its crossover counts
+EXEC_BENCH = {"n": 96, "seed": 42, "sizes": (256, 8192)}
+EXEC_COUNTS = (8, 32, 128, 512, 2048)
+
+
+def exec_messages(n: int, seed: int, sizes, n_procs: int):
+    """``n`` seeded messages over ``n_procs`` ranks, none to itself, as
+    ``tests/test_exec.py`` and ``benchmarks/bench_exec.py`` draw them."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_procs, n)
+    dst = (src + rng.integers(1, n_procs, n)) % n_procs
+    return src, dst, rng.integers(*sizes, n).astype(float)
+
+
+def digest_ok(digest, sched, what: str) -> float:
+    """Hold a digest to the float64 ``np.bincount(unit_dst, payload)``
+    within rtol 1e-4; returns its worst relative error."""
+    want = np.bincount(sched.unit_dst, weights=sched.payload.astype(float),
+                       minlength=sched.n_procs)
+    got = digest.double().cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL,
+                               err_msg=f"{what}: digest")
+    return float(np.max(np.abs(got - want) / np.maximum(want, 1.0),
+                        initial=0.0))
+
+
+def executed_ok(sched, card, what: str) -> float:
+    """Run ``sched`` on ``card`` through ``execute``; the delivered matrix
+    equal to ``run_reference`` (and to ``reference_delivered``), the digest
+    within 1e-4.  Returns the digest's worst relative error."""
+    from repro_torch.exec import execute, reference_delivered, run_reference
+
+    got, digest = execute(sched, device=card)
+    want = run_reference(sched)
+    if not (torch.equal(got.cpu(), torch.from_numpy(want))
+            and np.array_equal(want, reference_delivered(sched))):
+        raise AssertionError(f"{what}: delivered differs from run_reference")
+    return digest_ok(digest, sched, what)
+
+
+def crossover_agreement(card) -> tuple:
+    """``bench_exec_agreement``'s loop on ``card``: a table fitted from the
+    sweeps recorded on ``lassen_machine((2, 2, 2))`` and
+    ``frontier_machine((2, 2, 1))``, ``best_strategy_many`` over
+    ``GPU_STRATEGIES`` on the crossover patterns (``EXEC_COUNTS``) with it.
+    Returns (agreement, crossover, lassen's verdicts, every verdict)."""
+    from repro_torch.comm.phase import CommPhase
+    from repro_torch.comm.strategies import GPU_STRATEGIES, best_strategy_many
+    from repro_torch.exec import calibrate, record_sweeps
+    from repro_torch.net.machine import frontier_machine, lassen_machine
+
+    verdicts = {}
+    for mk, dims in ((lassen_machine, (2, 2, 2)),
+                     (frontier_machine, (2, 2, 1))):
+        m = mk(dims)
+        fitted = calibrate(record_sweeps(m, device=card), m.params).params
+        phases = [CommPhase.build(m, *exec_messages(n, 42, (256, 8192),
+                                                    m.n_procs),
+                                  n_procs=m.n_procs) for n in EXEC_COUNTS]
+        verdicts[m.name] = best_strategy_many(
+            phases, strategies=GPU_STRATEGIES, seed=0, params=fitted,
+            device=card)
+    every = [v for vs in verdicts.values() for v in vs]
+    lassen = verdicts["lassen"]
+    winners = [v.sim_winner for v in lassen]
+    staged = [i for i, w in enumerate(winners) if w == "host_staged"]
+    crossed = (winners[0] == "device_direct" and staged
+               and winners[-1] == "host_staged")
+    cases = [0, staged[0], len(winners) - 1] if crossed else []
+    crossover = float(bool(crossed) and all(lassen[i].agree for i in cases))
+    return float(np.mean([v.agree for v in every])), crossover, verdicts
+
+
+def execution_layer(ks, pats, clock_hz, card=None) -> dict:
+    """``repro_torch.exec`` on the card (``card``, ``None`` = CUDA), each
+    step with K1's and K2's counts set to 0 just before and every K1/K2
+    input captured and held to its plain version:
+
+    (a) ``tests/test_exec.py``'s cases: the four host presets x every
+        strategy of each, 40 messages from seed 11, both colorings, each
+        executed on the card: delivered equal to ``run_reference`` and
+        ``reference_delivered``, the digest within rtol 1e-4 of the float64
+        bincount;
+    (b) ``bench_exec.py``'s setup: a table fitted from the sweeps recorded
+        on the card (held to the cpu fit within rel 1e-4), the
+        measured-vs-predicted table per strategy (median of 5 runs after 2,
+        the predicted cost, rounds), the pairwise agreement (printed, not
+        gated), ``launch_overhead``, and greedy ``standard`` against
+        ``per_message`` (at least 1.0, the reference's ``perf_smoke``
+        gate);
+    (c) the calibrated agreement (``bench_exec_agreement``): agreement and
+        crossover 1.0, the reference's values;
+    (d) Figs. 10-11 at the reference benchmark's setup, levels 0-3 x the
+        three node-aware strategies, executed and held as in (a);
+    (e) full width: level 0 of phase 4's hierarchy (``pats[0]`` on
+        ``blue_waters_machine((8, 8, 4))``) x the three strategies: the
+        host plan and executor build timed, the median run (reps 5, warmup
+        2), the buffers and peak device memory; the delivered matrix held
+        to the semantic oracle on the card (one nonzero a unit, the
+        payload at its destination) and the digest to the bincount.
+    Returns, per kernel, its launches on the phase and its calls' summed
+    times and bound."""
+    from repro_torch.comm.phase import CommPhase
+    from repro_torch.comm.strategies import STRATEGIES, strategies_for
+    from repro_torch.exec import (COLORINGS, build_executor, build_schedule,
+                                  calibrate, delivered_digest, host_machines,
+                                  lassen_8, launch_overhead,
+                                  pairwise_agreement, predicted_costs,
+                                  record_sweeps, time_schedule)
+    from repro_torch.net.machine import blue_waters_machine
+    from repro_torch.sparse import build_hierarchy, elasticity_like_3d
+
+    launches = {"segment_reduce": 0, "queue_walk": 0}
+    captured = {"segment_reduce": [], "queue_walk": []}
+
+    def counted(fn):
+        out, wall, n, cap, _ = counted_kernels(ks, fn)
+        for k in launches:
+            launches[k] += n[k]
+            captured[k] += cap[k]
+        return out, wall, n
+
+    # (a) the reference's test cases
+    def test_cases():
+        worst, cases = 0.0, 0
+        for name, m in host_machines().items():
+            ph = CommPhase.build(m, *exec_messages(40, 11, (1, 6000), 8),
+                                 n_procs=8)
+            for strat in strategies_for(m):
+                for coloring in COLORINGS:
+                    sched = build_schedule(ph, strat, coloring=coloring)
+                    worst = max(worst, executed_ok(
+                        sched, card, f"{name}/{strat}/{coloring}"))
+                    cases += 1
+        return worst, cases
+
+    (worst, cases), t_a, n_a = counted(test_cases)
+    if n_a["segment_reduce"] != cases:
+        raise AssertionError(f"{cases} digests, {n_a} launches")
+    log(f"exec (a) test_exec's cases: {cases} schedules (4 host presets x "
+        f"their strategies x {COLORINGS}) executed on the card in "
+        f"{t_a:.3f} s, every delivered matrix equal to run_reference, "
+        f"digests within rtol {RTOL} of the bincount (worst {worst:.3g}); "
+        f"launches {n_a}")
+
+    # (b) bench_exec's setup
+    m8 = lassen_8()
+    ph = CommPhase.build(m8, *exec_messages(
+        EXEC_BENCH["n"], EXEC_BENCH["seed"], EXEC_BENCH["sizes"], 8),
+        n_procs=8)
+
+    def bench():
+        fit = calibrate(record_sweeps(m8, device=card), m8.params)
+        predicted = predicted_costs(ph, params=fit.params, device=card)
+        measured, rounds = {}, {}
+        for strat in strategies_for(m8):
+            sched = build_schedule(ph, strat)
+            executed_ok(sched, card, f"bench_exec {strat}")
+            measured[strat] = time_schedule(sched, device=card, reps=5,
+                                            warmup=2).median_s
+            rounds[strat] = sched.n_rounds
+        overhead = launch_overhead(ph, device=card, reps=5, warmup=2)
+        colored = build_schedule(ph, "standard")
+        naive = build_schedule(ph, "standard", coloring="per_message")
+        for s in (colored, naive):
+            executed_ok(s, card, f"bench_exec standard/{s.coloring}")
+        t_col = time_schedule(colored, device=card, reps=5, warmup=2)
+        t_naive = time_schedule(naive, device=card, reps=5, warmup=2)
+        return (fit, predicted, measured, rounds, overhead, colored, naive,
+                t_col.median_s, t_naive.median_s)
+
+    (fit, predicted, measured, rounds, overhead, colored, naive, t_col,
+     t_naive), t_b, n_b = counted(bench)
+    cpu_fit = calibrate(record_sweeps(m8, device="cpu"), m8.params)
+    for f in ("alpha", "Rb", "RN"):
+        np.testing.assert_allclose(getattr(fit.params, f),
+                                   getattr(cpu_fit.params, f), rtol=RTOL,
+                                   err_msg=f"fitted {f} against the cpu fit")
+    if fit.n_rails != cpu_fit.n_rails:
+        raise AssertionError(f"rails {fit.n_rails} against the cpu fit's "
+                             f"{cpu_fit.n_rails}")
+    cpu_pred = predicted_costs(ph, params=fit.params, device="cpu")
+    np.testing.assert_allclose([predicted[s] for s in cpu_pred],
+                               list(cpu_pred.values()), rtol=RTOL, atol=ATOL,
+                               err_msg="predicted costs against cpu")
+    ratio = t_naive / t_col
+    log(f"exec (b) bench_exec's setup: lassen_8, {ph.n_msgs} messages "
+        f"from seed {EXEC_BENCH['seed']}, sizes {EXEC_BENCH['sizes']}; fitted "
+        f"table (rails {fit.n_rails}, classes {fit.fitted_classes}) within "
+        f"rel {RTOL} of the cpu fit; step {t_b:.3f} s; launches {n_b}")
+    log(f"  {'strategy':14s} {'median ms':>10s} {'predicted s':>13s} "
+        f"{'rounds':>6s}")
+    for s in measured:
+        log(f"  {s:14s} {1e3 * measured[s]:10.4f} {predicted[s]:13.6g} "
+            f"{rounds[s]:6d}")
+    log(f"  pairwise agreement, measured against predicted (printed, not "
+        f"gated): {pairwise_agreement(measured, predicted):.4f}; launch "
+        f"overhead {1e3 * overhead:.4f} ms "
+        f"({overhead / measured['standard']:.4f} of standard); greedy "
+        f"standard {1e3 * t_col:.4f} ms ({colored.n_rounds} rounds) against per_message "
+        f"{1e3 * t_naive:.4f} ms ({naive.n_rounds} rounds): "
+        f"per_message / greedy {ratio:.4f}")
+    if not ratio >= 1.0:
+        raise AssertionError(f"per_message / greedy standard {ratio:.4f} "
+                             "< 1.0")
+
+    # (c) the calibrated agreement
+    (agreement, crossover, verdicts), t_c, n_c = counted(
+        lambda: crossover_agreement(card))
+    for mname, vs in verdicts.items():
+        for n, v in zip(EXEC_COUNTS, vs):
+            margin = {t: abs(np.subtract(*table.values()))
+                      / max(table.values())
+                      for t, table in (("model", v.model), ("sim", v.sim))}
+            log(f"  {mname} {n} messages: model {v.model_winner} (margin "
+                f"{margin['model']:.4g}), simulator {v.sim_winner} (margin "
+                f"{margin['sim']:.4g}), agree {v.agree}")
+    log(f"exec (c) calibrated agreement {agreement} and crossover "
+        f"{crossover} (the reference's: 1.0 and 1.0) in {t_c:.3f} s; "
+        f"launches {n_c}")
+    if (agreement, crossover) != (1.0, 1.0):
+        raise AssertionError(f"calibrated agreement {agreement}, crossover "
+                             f"{crossover}")
+    if not n_c["queue_walk"]:
+        raise AssertionError(f"the agreement sweep missed K2: {n_c}")
+
+    # (d) Figs. 10-11 at the reference benchmark's setup
+    cfg = FIG10_11_SETUP
+    levels = build_hierarchy(elasticity_like_3d(cfg["nx"]), theta=0.25)
+    tagged = [(li, p) for li, p in amg_tagged(
+        levels, "spmv", blue_waters_machine(cfg["torus"]),
+        max_ranks=cfg["max_ranks"]) if li < 4]
+
+    def fig_levels():
+        rows = []
+        for li, p in tagged:
+            for strat in STRATEGIES:
+                sched = build_schedule(p, strat)
+                err = executed_ok(sched, card, f"level {li} {strat}")
+                rows.append((li, p.n_procs, p.n_msgs, strat, sched.n_units,
+                             sched.n_rounds, err))
+        return rows
+
+    rows, t_d, n_d = counted(fig_levels)
+    log(f"exec (d) Figs. 10-11 setup (elasticity_like_3d({cfg['nx']}), at "
+        f"most {cfg['max_ranks']} ranks a level), levels 0-3 x "
+        f"{STRATEGIES} in {t_d:.3f} s, delivered equal to run_reference, "
+        f"digests within rtol {RTOL}; launches {n_d}")
+    for li, P, n_msgs, strat, units, n_rounds, err in rows:
+        log(f"  level {li}: {P} ranks, {n_msgs} msgs, {strat}: {units} "
+            f"units, {n_rounds} rounds, digest rel err {err:.3g}")
+
+    # (e) full width
+    m = blue_waters_machine(FULL["torus"])
+    full = pats[0].bind(m)
+    scheds = {}
+
+    def full_width():
+        out = {}
+        for strat in STRATEGIES:
+            sched, t_plan = sync_time(lambda: build_schedule(full, strat))
+            torch.cuda.reset_peak_memory_stats()
+            run, t_build = sync_time(lambda: build_executor(sched,
+                                                            device=card))
+            got, t_run = sync_time(run)
+            U = sched.n_units
+            dst = torch.as_tensor(sched.unit_dst, device=got.device)
+            placed = got[dst, torch.arange(U, device=got.device)]
+            if int(torch.count_nonzero(got)) != U or not torch.equal(
+                    placed.cpu(), torch.from_numpy(sched.payload)):
+                raise AssertionError(f"full width {strat}: delivered is not "
+                                     "the payload at each destination")
+            err = digest_ok(delivered_digest(got, sched), sched,
+                            f"full width {strat}")
+            del got, placed
+            meas = time_schedule(sched, device=card, reps=5, warmup=2)
+            widths = [r.width for p in sched.phases for r in p.rounds]
+            out[strat] = dict(plan_s=t_plan, build_s=t_build,
+                              first_run_s=t_run, median_s=meas.median_s,
+                              runs_s=meas.times_s, rounds=sched.n_rounds,
+                              msgs=sched.n_msgs, units=U,
+                              widest=max(widths, default=0),
+                              buffers_gb=2 * 4 * sched.n_procs * (U + 1)
+                              / 1e9,
+                              peak_gb=torch.cuda.max_memory_allocated()
+                              / 1e9, digest_rel_err=err)
+            scheds[strat] = sched
+        return out
+
+    figs, t_e, n_e = counted(full_width)
+    log(f"exec (e) full width: level 0 of phase 4's hierarchy "
+        f"({full.n_procs} ranks, {full.n_msgs} messages) in {t_e:.3f} s; "
+        f"every delivered matrix the payload at its destination (one "
+        f"nonzero a unit), digests within rtol {RTOL}; launches {n_e}")
+    for strat, f in figs.items():
+        log(f"  {strat}: build_schedule {f['plan_s']:.3f} s (host), "
+            f"executor build {f['build_s']:.4f} s, first run "
+            f"{1e3 * f['first_run_s']:.3f} ms, median run "
+            f"{1e3 * f['median_s']:.4f} ms (runs "
+            + ", ".join(f"{1e3 * t:.4f}" for t in f["runs_s"])
+            + f" ms); {f['rounds']} rounds, {f['msgs']} messages, "
+            f"{f['units']} units, widest round {f['widest']} units; "
+            f"buffers {f['buffers_gb']:.3f} GB, peak device memory "
+            f"{f['peak_gb']:.3f} GB; digest rel err "
+            f"{f['digest_rel_err']:.3g}")
+    for what, n in (("(a)", n_a), ("(b)", n_b), ("(d)", n_d), ("(e)", n_e)):
+        if not n["segment_reduce"]:
+            raise AssertionError(f"exec {what} missed K1: {n}")
+
+    std = scheds["standard"]
+    run = build_executor(std, device=card)
+    prof = {"segment_reduce": device_share(
+                lambda: delivered_digest(run(), std)),
+            "queue_walk": device_share(lambda: crossover_agreement(card))}
+    # K1 from a rerun of the full-width standard run and its digest, K2 of
+    # the agreement sweep
+    return kernel_sums(ks, "exec", launches, captured, clock_hz, prof)
+
+
+# -- phase 13: kernel figures ------------------------------------------------
 
 def k2_chain_ops(ks, posted, arrival, bounds):
     """(ops of the longest region's serial chain, ops of all regions) of
@@ -2075,6 +2344,44 @@ def k2_call_figures(ks, posted, arrival, bounds, clock_hz) -> dict:
         mean_region=float(counts.mean()) if R else 0.0,
         p99_region=float(torch.quantile(counts, 0.99)) if R else 0.0,
         chain_steps=chain, all_steps=total)
+
+
+def kernel_sums(ks, what: str, launches, captured, clock_hz,
+                prof) -> dict:
+    """Every K1 and K2 call a phase captured, held to its plain version
+    and timed as the kernels line times the full slice's.  Returns, per
+    kernel, its launches on the phase, its calls' summed times and bound,
+    its device ms in the profiled rerun ``prof`` (``device_share``'s rows,
+    or such rows per kernel; None where the profiler saw no device time)
+    and its worst error against the plain version."""
+    k1 = [k1_err(ks, *c) for c in captured["segment_reduce"]]
+    k2 = [k2_check(ks, *c) for c in captured["queue_walk"]]
+    log(f"{what} kernel calls: K1 {len(k1)} held to its plain version (max "
+        f"abs err {max((e for e, _ in k1), default=0.0):.3g}, worst "
+        f"{max((r for _, r in k1), default=0.0):.3g} of the bound), K2 "
+        f"{len(k2)} bit-equal "
+        f"({sum(c[0].numel() for c in captured['queue_walk'])} arrivals)")
+    log(f"{what} launches: {launches}")
+    figs = {"segment_reduce": [k1_call_figures(ks, *c)
+                               for c in captured["segment_reduce"]],
+            "queue_walk": [k2_call_figures(ks, *c, clock_hz)
+                           for c in captured["queue_walk"]]}
+    out = {}
+    for name, tag in (("segment_reduce", "seg_"),
+                      ("queue_walk", "count_earlier_smaller")):
+        keys = ("ms", "kernel_ms", "plain_ms", "bound_ms") + (
+            ("library_ms",) if name == "segment_reduce" else ())
+        out[name] = {"launches": launches[name],
+                     **{k: sum(f[k] for f in figs[name]) for k in keys}}
+        rows = prof[name] if isinstance(prof, dict) else prof
+        out[name]["device_ms"] = (sum(us for us, _, key in rows
+                                      if tag in key) / 1e3 if rows else None)
+        log(f"{what} {name}: {out[name]} (ms summed over its "
+            f"{launches[name]} calls; device_ms from the profiled rerun)")
+    out["segment_reduce"]["max_abs_err"] = max((e for e, _ in k1),
+                                               default=0.0)
+    out["queue_walk"]["max_abs_err"] = max(k2, default=0)
+    return out
 
 
 def kernel_rows(ks, launches, captured, clock_hz):
@@ -2397,7 +2704,7 @@ def k4_k5_parity(dev) -> None:
         f"path")
 
 
-# -- phases 10 and 11: the model -------------------------------------------------
+# -- phases 11 and 12: the model -------------------------------------------------
 
 def greedy(model, cfg, tokens, steps: int, device, max_seq: int):
     """``prefill`` then ``steps`` greedy ``decode_step`` calls; returns
@@ -2605,7 +2912,7 @@ def serve_engine(cfg, model, fa, ssd) -> None:
         log(f"  req {r.uid}: prompt {r.prompt} -> {r.output}")
 
 
-# -- phase 12: K4 and K5 figures --------------------------------------------------
+# -- phase 13: K4 and K5 figures --------------------------------------------------
 
 def k4_call_figures(fa, q, k, v, causal) -> dict:
     """CUDA-event times of one K4 call (the wrapper, the launch alone, the
@@ -2765,13 +3072,15 @@ def main() -> int:
     registry = registry_sweep(ks, clock_mhz * 1e6)
     delta, drifted = delta_repricing(ks, levels, clock_mhz * 1e6)
     service = strategy_service(ks, pats, verdicts, drifted, clock_mhz * 1e6)
+    execution = execution_layer(ks, pats, clock_mhz * 1e6)
     small_model()
     model_run = full_model()
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
     for row in rows:        # K1 and K2: their calls on the registry sweep,
-        row["registry"] = registry[row["name"]]   # on delta re-pricing and
-        row["delta"] = delta[row["name"]]         # on the strategy service
-        row["service"] = service[row["name"]]
+        row["registry"] = registry[row["name"]]   # on delta re-pricing, on
+        row["delta"] = delta[row["name"]]         # the strategy service and
+        row["service"] = service[row["name"]]     # on the execution layer
+        row["exec"] = execution[row["name"]]
     rows.append(k3_row(*k3_run))
     rows.extend(model_kernel_rows(*model_run))
     log(f"paper measurements launches (Figs. 10-11 at full width): "
@@ -2782,6 +3091,8 @@ def main() -> int:
         f"{k} {v['launches']}" for k, v in delta.items()))
     log("strategy service launches: " + ", ".join(
         f"{k} {v['launches']}" for k, v in service.items()))
+    log("execution layer launches: " + ", ".join(
+        f"{k} {v['launches']}" for k, v in execution.items()))
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

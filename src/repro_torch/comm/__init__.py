@@ -4,9 +4,8 @@ strategy rewrites, typed validation, fault injection and the health ledger.
 Re-exports the names of ``repro.comm``'s ``__all__`` that the port defines
 in the same submodules, and one of its own: :class:`BackendUnavailable`
 (:mod:`repro_torch.comm.health`), what the strategy service answers with
-while a device's circuit breaker is open.  The rest waits for its ROADMAP
-item: payload accounting (3).  ``STACK_BACKENDS`` has no counterpart: the
-port has one backend, the device the caller names.
+while a device's circuit breaker is open.  ``STACK_BACKENDS`` has no
+counterpart: the port has one backend, the device the caller names.
 """
 from .guard import (PatternError, MessageSizeError, RankError,
                     ArenaOverflowError, validate_messages, validate_phase)
@@ -25,6 +24,7 @@ from .delta import (ARENA_TYPES, DeltaStack, message_delta,
 from .strategies import (STRATEGIES, GPU_STRATEGIES, StrategyPlan,
                          StrategyVerdict, strategies_for, standard, two_step,
                          three_step, host_staged, device_direct, rewrite,
+                         injected_payload, delivered_payload,
                          best_strategy, best_strategy_many)
 
 __all__ = [
@@ -38,7 +38,8 @@ __all__ = [
     "STRATEGIES", "GPU_STRATEGIES", "StrategyPlan", "StrategyVerdict",
     "strategies_for",
     "standard", "two_step", "three_step", "host_staged", "device_direct",
-    "rewrite", "best_strategy", "best_strategy_many",
+    "rewrite", "injected_payload", "delivered_payload", "best_strategy",
+    "best_strategy_many",
     "PatternError", "MessageSizeError", "RankError", "ArenaOverflowError",
     "validate_messages", "validate_phase",
     "FaultSpec", "InjectedFault", "InjectedTimeout", "inject",

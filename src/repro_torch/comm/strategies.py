@@ -54,6 +54,11 @@ GPU_STRATEGIES = ("host_staged", "device_direct")
 #: self-copies at the ``h2d`` rate class) of the ``host_staged`` strategy.
 ROLES = ("standard", "local", "d2h", "gather", "inter", "scatter", "h2d")
 
+#: Row dtype of :meth:`StrategyPlan.schedule`: one row per rewritten message.
+SCHEDULE_DTYPE = np.dtype([("phase", np.int32), ("role", np.int32),
+                           ("src", np.int64), ("dst", np.int64),
+                           ("size", np.float64)])
+
 
 def strategies_for(machine) -> tuple[str, ...]:
     """The strategy names worth sweeping on ``machine``: the three node-aware
@@ -94,6 +99,64 @@ class StrategyPlan:
     @property
     def n_phases(self) -> int:
         return len(self.phases)
+
+    @property
+    def total_msgs(self) -> int:
+        return sum(ph.n_msgs for ph in self.phases)
+
+    @property
+    def inter_node_msgs(self) -> int:
+        """Messages that cross a node boundary, summed over the sequence."""
+        return sum(int(_remote_mask(ph).sum()) for ph in self.phases)
+
+    def phase_by_role(self, role: str) -> CommPhase | None:
+        """The first phase playing ``role`` (see ``ROLES``), or None."""
+        for ph, r in zip(self.phases, self.roles):
+            if r == role:
+                return ph
+        return None
+
+    def schedule(self) -> np.ndarray:
+        """The plan's executable message schedule, one structured row per
+        rewritten message (dtype ``SCHEDULE_DTYPE``): ``phase`` indexes into
+        ``phases``, ``role`` into ``ROLES``, and ``src`` / ``dst`` / ``size``
+        are the message endpoints and payload bytes.  The execution layer
+        (:mod:`repro_torch.exec`) lowers from it: a lowered schedule's
+        per-role (src, dst) pair set must be a subset of these rows
+        (:func:`repro_torch.exec.plan.pairs_subset_of_plan`)."""
+        out = np.empty(self.total_msgs, dtype=SCHEDULE_DTYPE)
+        at = 0
+        for i, (ph, role) in enumerate(zip(self.phases, self.roles)):
+            rows = out[at:at + ph.n_msgs]
+            rows["phase"] = i
+            rows["role"] = ROLES.index(role)
+            rows["src"] = ph.src
+            rows["dst"] = ph.dst
+            rows["size"] = ph.size
+            at += ph.n_msgs
+        return out
+
+    def inter_node_pair_bytes(self) -> tuple[np.ndarray, np.ndarray,
+                                             np.ndarray]:
+        """(send_node, recv_node, bytes) actually crossing node boundaries.
+
+        Invariant under every rewrite (payload conservation): aggregation
+        changes message *counts* and *sizes*, never which node owes how many
+        payload bytes to which node.
+        """
+        sn, dn, sz = [], [], []
+        for ph in self.phases:
+            rem = _remote_mask(ph)
+            if rem.any():
+                sn.append(ph.send_node[rem])
+                dn.append(np.asarray(ph.machine.node_of(ph.dst[rem]),
+                                     dtype=np.int64))
+                sz.append(ph.size[rem])
+        if not sn:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z, np.zeros(0)
+        return sum_by_pairs(np.concatenate(sn), np.concatenate(dn),
+                            np.concatenate(sz))
 
 
 def _remote_mask(phase: CommPhase) -> np.ndarray:
@@ -276,6 +339,40 @@ def rewrite(phase: CommPhase, strategy: str) -> StrategyPlan:
     return fn(phase)
 
 
+# -- payload-conservation accessors -----------------------------------------
+#
+# Both are flow identities over the rewritten message arrays alone (no use of
+# the original payload), so tests can compare them against the original phase
+# to certify a rewrite delivers exactly what was sent.
+
+def injected_payload(plan: StrategyPlan) -> np.ndarray:
+    """Per-process payload bytes *originated*, reconstructed from the plan.
+
+    An injector's inter-phase sends equal its gather-phase receipts plus the
+    shares it originated itself, so ``local + gather + inter - gather_recv``
+    telescopes back to the original per-source payload.
+    """
+    P = plan.original.n_procs
+    out = np.zeros(P)
+    for ph, role in zip(plan.phases, plan.roles):
+        if role in ("standard", "local", "gather", "inter"):
+            out += np.bincount(ph.src, weights=ph.size, minlength=P)
+        if role == "gather":
+            out -= np.bincount(ph.dst, weights=ph.size, minlength=P)
+    return out
+
+
+def delivered_payload(plan: StrategyPlan) -> np.ndarray:
+    """Per-process payload bytes *finally delivered* by ``plan`` (mirror
+    identity: ``local + scatter + inter - scatter_sent``)."""
+    P = plan.original.n_procs
+    out = np.zeros(P)
+    for ph, role in zip(plan.phases, plan.roles):
+        if role in ("standard", "local", "scatter", "inter"):
+            out += np.bincount(ph.dst, weights=ph.size, minlength=P)
+        if role == "scatter":
+            out -= np.bincount(ph.src, weights=ph.size, minlength=P)
+    return out
 
 
 # -- the strategy sweep ------------------------------------------------------

@@ -110,6 +110,11 @@ class CommParams:
         """Whether ``name`` is a locality class of this rate table."""
         return name in self.locality_names
 
+    def replace(self, **kw) -> "CommParams":
+        """A copy of this table with the named fields replaced (``kw`` maps
+        field name to new value, as :func:`dataclasses.replace`)."""
+        return dataclasses.replace(self, **kw)
+
     @classmethod
     def from_arrays(cls, d) -> "CommParams":
         """A table from a mapping of field name to array or scalar.

@@ -61,14 +61,18 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr + res.stdout
     # every module was imported: the V-cycle's and K3's, the model
     # slice's (nn, configs, launch, serve, K4, K5), the workload
-    # registry's, delta re-pricing's (comm.delta, sparse.optimize) and the
-    # strategy service's among them
+    # registry's, delta re-pricing's (comm.delta, sparse.optimize), the
+    # strategy service's and the execution layer's among them
     mods = set(res.stdout.split())
-    assert len(mods) >= 60
+    assert len(mods) >= 67
     assert {"repro_torch.serve.strategy", "repro_torch.serve.admission",
             "repro_torch.serve.cache", "repro_torch.comm.health",
             "repro_torch.comm.faults", "repro_torch.comm.delta",
-            "repro_torch.sparse.optimize"} <= mods
+            "repro_torch.sparse.optimize", "repro_torch.exec",
+            "repro_torch.exec.plan", "repro_torch.exec.presets",
+            "repro_torch.exec.reference", "repro_torch.exec.lower",
+            "repro_torch.exec.measure",
+            "repro_torch.exec.calibrate"} <= mods
 
 
 # Reads the reference package's ``__init__`` as text (its ``__all__`` and
@@ -121,7 +125,7 @@ print(" ".join(left))
               "FaultSpec", "InjectedFault", "InjectedTimeout", "inject",
               "FAULT_SITES", "FAULT_MODES", "BackendHealth",
               "CircuitBreaker", "HealthEvent", "get_health",
-              "reset_health"),
+              "reset_health", "injected_payload", "delivered_payload"),
      ("BackendUnavailable",)),
     ("core", ("phase_cost_many", "CommParams", "TorusTopology", "phase_cost",
               "sequence_cost", "fit_alpha_beta"), ()),
@@ -139,7 +143,11 @@ print(" ".join(left))
                    "pipeline_p2p_pattern"), ()),
     ("serve", ("StrategyService", "ServiceResult", "AdmissionQueue",
                "Deadline", "RetryPolicy", "Overloaded", "DeadlineExceeded",
-               "ArenaCache", "ServeEngine", "Request"), ())])
+               "ArenaCache", "ServeEngine", "Request"), ()),
+    ("exec", ("build_schedule", "run_reference", "delivered_digest",
+              "build_executor", "execute", "time_schedule",
+              "predicted_costs", "pairwise_agreement", "record_sweeps",
+              "calibrate", "host_machines", "lassen_8"), ())])
 def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     # every name of repro.<pkg>.__all__ that the port defines in the
     # counterpart submodule is the same object at repro_torch.<pkg>, and
@@ -153,16 +161,14 @@ def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     assert res.returncode == 0, res.stderr + res.stdout
     ported, left = (line.split() for line in res.stdout.splitlines()[:2])
     assert set(must) <= set(ported), ported
-    if pkg in ("configs", "workloads", "serve"):
+    if pkg in ("configs", "workloads", "serve", "exec"):
         # the one name left: the pspec cross-check needs the jax sharding
         # tree (ROADMAP queue item 7)
         assert left == (["row_parallel_ops_from_pspecs"]
                         if pkg == "workloads" else []), left
     if pkg == "comm":
-        # payload accounting waits for ROADMAP item 3; the port has one
-        # backend, so no STACK_BACKENDS
-        assert sorted(left) == ["STACK_BACKENDS", "delivered_payload",
-                                "injected_payload"], left
+        # the port has one backend, so no STACK_BACKENDS
+        assert left == ["STACK_BACKENDS"], left
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
