@@ -115,11 +115,15 @@ Phases, in order (any failure raises and the script exits non-zero):
    timed, buffers and peak memory, the delivered matrix held to the
    semantic oracle on the card and the digest to the bincount;
 11. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
-   width cut to 2 layers, then the smoke configs of tinyllama-1.1b,
-   starcoder2-3b (gelu, layernorm) and qwen3-32b (qk-norm), float32
-   weights, one 256-token prompt, ``prefill`` (one K4 launch a layer) then
-   8 greedy ``decode_step`` calls on cuda and on cpu — logits within 1e-4
-   relative L2, the same tokens;
+   width cut to 2 layers, the smoke configs of tinyllama-1.1b,
+   starcoder2-3b (gelu, layernorm), qwen3-32b (qk-norm), deepseek-moe-16b
+   and qwen3-moe-30b-a3b (MoE), whisper-small (encoder and cross-attention
+   on frame embeddings) and qwen2-vl-72b (patch embeddings, M-RoPE),
+   qwen3-moe-30b-a3b at full width cut to 2 layers and llama3.2-3b's smoke
+   config with the int8 KV cache, float32 weights, one 256-position
+   prompt, ``prefill`` (one K4 launch a self-attention) then 8 greedy
+   ``decode_step`` calls on cuda and on cpu — logits within 1e-4 relative
+   L2, the same tokens;
 12. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
    random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
    tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
@@ -129,8 +133,26 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``make_serve_step`` decode steps; prefill and decode times, peak device
    memory and the device busy share of a profiled prefill; then
    ``ServeEngine`` at full width (4 slots, 6 seeded requests of 2-7 prompt
-   tokens, 8 new tokens each);
-13. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
+   tokens, 8 new tokens each); the model is freed before phase 13;
+13. the rest of ``nn/``, each model freed before the next, each prefill
+   run with K4's count set to 0 just before and every K4 input captured,
+   held to its plain version and timed beside SDPA: deepseek-moe-16b as
+   published (28 layers, 64 experts top-6 and 2 shared, bf16 random
+   weights; 16.4 B parameters) on 4 x 2048 tokens (28 K4 launches), the
+   assignments dropped for capacity and the aux loss a layer, 32 decode
+   steps beside their bytes bound, the device busy share of a profiled
+   prefill, one MoE layer split by CUDA events into routing, dispatch,
+   expert products, combine and shared experts and held on 512 tokens to
+   itself on the cpu in float32 (routing equal), then ``ServeEngine``;
+   whisper-small as published on 4 x 1500 frame embeddings and 4 x 64
+   tokens (24 K4 launches, 12 non-causal at S 1500) and 32 decode steps
+   through cross-attention, the cached encoder output unchanged;
+   qwen2-vl-72b at full width cut to 4 layers on 2 x 2048 patch embeddings
+   (K4 at rep 8), ``forward_logits`` with image-grid positions and 8
+   decode steps; llama3.2-3b with the int8 KV cache on 4 x 2048 tokens and
+   32 decode steps beside the bf16 cache's (half the k/v bytes, logits
+   within the reference's 0.08);
+14. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
    (K1's and K2's rows add ``registry``, ``delta``, ``service`` and
    ``exec``: their launches on phase 7's sweep, on phase 8, on phase 9's
    cold query and reprice and on phase 10, with their calls' times and
@@ -141,10 +163,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    the least time the card could take for the same calls; K1's row adds
    its launches by path and each call's path, K3's its lanes per operator
    and its bound over every padded slot (``bound_padded_ms``); K4's row adds
-   its ``path`` ("wgmma"), its TFLOP/s launch alone and ``vs_library``
-   (launch alone over SDPA), K5's its ``path`` ("mma.sync 3xTF32"), and
-   both their ``tc_launches``;
-14. the card's name and power limit as ``nvidia-smi`` reports them, then,
+   its ``path`` ("wgmma"), its TFLOP/s launch alone, ``vs_library``
+   (launch alone over SDPA) and ``rest_of_nn`` (its launches and summed
+   figures on each model of phase 13), K5's its ``path`` ("mma.sync
+   3xTF32"), and both their ``tc_launches``;
+15. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -154,6 +177,7 @@ port's sources are not beside the script.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -351,6 +375,10 @@ MODEL_RTOL = 1e-4
 # dense ids whose smoke configs the small-model phase adds: llama2-style,
 # gelu MLP with layernorm, qk-norm
 DENSE_SMOKE = ("tinyllama-1.1b", "starcoder2-3b", "qwen3-32b")
+# ids of the other families whose smoke configs it adds: MoE (with leading
+# dense layers and shared experts), encoder-decoder, patch frontend
+FAMILY_SMOKE = ("deepseek-moe-16b", "qwen3-moe-30b-a3b", "whisper-small",
+                "qwen2-vl-72b")
 HYMBA = {"arch": "hymba-1.5b", "batch": 4, "prompt": 2048, "max_seq": 2080,
          "decode": 32, "small_prompt": 256, "small_decode": 8,
          "engine": {"slots": 4, "requests": 6, "max_new": 8, "max_seq": 64}}
@@ -2241,7 +2269,7 @@ def execution_layer(ks, pats, clock_hz, card=None) -> dict:
     return kernel_sums(ks, "exec", launches, captured, clock_hz, prof)
 
 
-# -- phase 13: kernel figures ------------------------------------------------
+# -- phase 14: kernel figures ------------------------------------------------
 
 def k2_chain_ops(ks, posted, arrival, bounds):
     """(ops of the longest region's serial chain, ops of all regions) of
@@ -2616,7 +2644,7 @@ def k5_inputs(gen, G1, h, q, n, p):
 
 
 def k4_k5_parity(dev) -> None:
-    """K4 on D 16/32/64/128, rep 1 and 5, causal and full, S 1, 63, 200
+    """K4 on D 16/32/64/128, rep 1, 5 and 8, causal and full, S 1, 63, 200
     (not multiples of the 64-row tile) and 2048, float32 and bfloat16, then
     causal bf16 at hymba-1.5b's and llama3.2-3b's full attention shapes
     (timed beside SDPA and the bound); K5 on q 1/16/24/64/100/128 (ragged
@@ -2633,7 +2661,7 @@ def k4_k5_parity(dev) -> None:
     fa.reset_launches()
     n_bf16 = 0
     for D in (16, 32, 64, 128):
-        for rep in (1, 5):
+        for rep in (1, 5, 8):
             for causal in (True, False):
                 for S in (1, 63, 200, 2048):
                     for dtype in (torch.float32, torch.bfloat16):
@@ -2657,7 +2685,7 @@ def k4_k5_parity(dev) -> None:
         raise AssertionError(f"{fa.LAUNCHES['flash_attention_tc']} of "
                              f"{n_bf16} bf16 K4 cases ran on the tensor "
                              f"cores")
-    log(f"K4 parity: {n} cases (D 16/32/64/128, rep 1/5, causal and full, "
+    log(f"K4 parity: {n} cases (D 16/32/64/128, rep 1/5/8, causal and full, "
         f"S 1/63/200/2048, float32 and bfloat16; 2 full-width bf16), max abs"
         f" err float32 {worst[torch.float32]:.3g}, bfloat16 "
         f"{worst[torch.bfloat16]:.3g}; {fa.LAUNCHES['flash_attention_tc']} "
@@ -2706,14 +2734,32 @@ def k4_k5_parity(dev) -> None:
 
 # -- phases 11 and 12: the model -------------------------------------------------
 
-def greedy(model, cfg, tokens, steps: int, device, max_seq: int):
-    """``prefill`` then ``steps`` greedy ``decode_step`` calls; returns
-    (every logits row on the host, the greedy tokens)."""
+def prompt_inputs(cfg, B: int, S: int, seed: int) -> dict:
+    """A seeded prompt of ``cfg``'s family as numpy arrays, keyed as
+    ``prefill`` takes them: tokens, or patch embeddings [B, S, d] for a
+    patch frontend (qwen2-vl); frame embeddings [B, encoder_seq, d] for an
+    encoder (whisper)."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "patch_embed":
+        out = {"embeds": rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)}
+    else:
+        out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S))}
+    if cfg.encoder_layers:
+        out["enc_frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def greedy(model, cfg, inputs: dict, steps: int, device, max_seq: int):
+    """``prefill`` of ``inputs`` (tensors keyed as ``prefill`` takes them)
+    then ``steps`` greedy ``decode_step`` calls; returns (every logits row
+    on the host, the greedy tokens)."""
     from repro_torch.nn import decode_step, prefill
 
-    S = tokens.shape[1]
-    logits, cache = prefill(model, cfg, tokens, max_seq=max_seq,
-                            device=device)
+    S = next(iter(inputs.values())).shape[1]
+    logits, cache = prefill(model, cfg, max_seq=max_seq, device=device,
+                            **inputs)
     rows, toks = [logits.double().cpu()], []
     for i in range(steps):
         tok = logits.argmax(-1)
@@ -2726,12 +2772,16 @@ def greedy(model, cfg, tokens, steps: int, device, max_seq: int):
 
 
 def small_model() -> None:
-    """hymba-1.5b's smoke config and its full width cut to 2 layers, and the
+    """hymba-1.5b's smoke config and its full width cut to 2 layers, the
     smoke configs of the dense ids whose blocks differ from llama3.2's
     (tinyllama-1.1b; starcoder2-3b: gelu MLP, layernorm; qwen3-32b:
-    qk-norm), float32 weights, on cuda and on cpu: K4 launched on cuda,
-    logits within MODEL_RTOL relative L2 of each other at every step, the
-    same greedy tokens."""
+    qk-norm) and of the other families (deepseek-moe-16b and
+    qwen3-moe-30b-a3b: MoE; whisper-small: encoder and cross-attention on
+    frame embeddings; qwen2-vl-72b: patch embeddings, M-RoPE),
+    qwen3-moe-30b-a3b at full width cut to 2 layers and llama3.2-3b's smoke
+    config with the int8 KV cache, float32 weights, on cuda and on cpu: K4
+    launched once a self-attention on cuda, logits within MODEL_RTOL
+    relative L2 of each other at every step, the same greedy tokens."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.nn import init_params, params_from_numpy, params_to_numpy
@@ -2741,22 +2791,30 @@ def small_model() -> None:
             (HYMBA["arch"], "smoke config", get_smoke_config(HYMBA["arch"])),
             (HYMBA["arch"], "full width cut to 2 layers", dataclasses.replace(
                 get_config(HYMBA["arch"]), n_layers=2)),
-            *((a, "smoke config", get_smoke_config(a)) for a in DENSE_SMOKE)):
+            *((a, "smoke config", get_smoke_config(a))
+              for a in DENSE_SMOKE + FAMILY_SMOKE),
+            ("qwen3-moe-30b-a3b", "full width cut to 2 layers",
+             dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                                 n_layers=2)),
+            ("llama3.2-3b", "smoke config with kv_quant",
+             dataclasses.replace(get_smoke_config("llama3.2-3b"),
+                                 kv_quant=True))):
         gpu = init_params(cfg, seed=0).float()
         cpu = params_from_numpy(params_to_numpy(gpu), cfg, device="cpu",
                                 dtype=torch.float32)
-        tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, S))
+        inputs = {k: torch.from_numpy(v)
+                  for k, v in prompt_inputs(cfg, 1, S, 0).items()}
         fa.reset_launches()
         (rows_g, toks_g), t_gpu = sync_time(lambda: greedy(
-            gpu, cfg, torch.from_numpy(tokens).cuda(), steps, None,
+            gpu, cfg, {k: v.cuda() for k, v in inputs.items()}, steps, None,
             S + steps))
         k4 = fa.LAUNCHES["flash_attention"]
-        if k4 != cfg.n_layers:
+        if k4 != cfg.n_layers + cfg.encoder_layers:
             raise AssertionError(f"small model {arch} ({label}): K4 launched "
-                                 f"{k4} times, expected {cfg.n_layers}")
+                                 f"{k4} times, expected "
+                                 f"{cfg.n_layers + cfg.encoder_layers}")
         t = time.perf_counter()
-        rows_c, toks_c = greedy(cpu, cfg, torch.from_numpy(tokens), steps,
-                                "cpu", S + steps)
+        rows_c, toks_c = greedy(cpu, cfg, inputs, steps, "cpu", S + steps)
         t_cpu = time.perf_counter() - t
         rels = [rel_l2(g, c) for g, c in zip(rows_g, rows_c)]
         if not max(rels) <= MODEL_RTOL or not all(
@@ -2768,12 +2826,16 @@ def small_model() -> None:
                                  f"tokens differ: cuda {toks_g.tolist()}, "
                                  f"cpu {toks_c.tolist()}")
         log(f"small model, {arch} {label} ({cfg.n_layers} layers, "
-            f"d_model {cfg.d_model}, {cfg.mlp_type} MLP, {cfg.norm_type}, "
-            f"qk_norm {cfg.qk_norm}), float32, 1 x {S}-token prompt + "
-            f"{steps} greedy steps, {k4} K4 launches: cuda {t_gpu:.3f} s, "
-            f"cpu {t_cpu:.3f} s; "
+            f"d_model {cfg.d_model}, {cfg.family}, {cfg.mlp_type} MLP, "
+            f"{cfg.norm_type}, qk_norm {cfg.qk_norm}, experts "
+            f"{cfg.n_experts} top-{cfg.n_experts_active}, encoder "
+            f"{cfg.encoder_layers}, m_rope {cfg.m_rope}, kv_quant "
+            f"{cfg.kv_quant}), float32, 1 x {S}-position prompt "
+            f"({'/'.join(inputs)}) + {steps} greedy steps, {k4} K4 launches:"
+            f" cuda {t_gpu:.3f} s, cpu {t_cpu:.3f} s; "
             f"logits relative L2 worst {max(rels):.3g} (limit {MODEL_RTOL}),"
             f" tokens equal {toks_g[0].tolist()}")
+        del gpu, cpu
 
 
 def full_model():
@@ -2877,6 +2939,8 @@ def full_model():
         f"{dev_ms} ms")
     del cache
     serve_engine(cfg, model, fa, ssd)
+    del model
+    torch.cuda.empty_cache()
     return launches, captured, dev_ms
 
 
@@ -2912,7 +2976,496 @@ def serve_engine(cfg, model, fa, ssd) -> None:
         log(f"  req {r.uid}: prompt {r.prompt} -> {r.output}")
 
 
-# -- phase 13: K4 and K5 figures --------------------------------------------------
+# -- phase 13: the rest of nn/ -------------------------------------------------
+
+# the full-width runs of the other families: deepseek-moe-16b as published;
+# whisper-small as published on 1,500 frame embeddings; qwen2-vl-72b at full
+# width cut to 4 of its 80 layers (80 are 144 GB); llama3.2-3b with the
+# int8 KV cache
+REST = {
+    "deepseek": {"arch": "deepseek-moe-16b", "batch": 4, "prompt": 2048,
+                 "max_seq": 2080, "decode": 32, "layer_tokens": 512},
+    "whisper": {"arch": "whisper-small", "batch": 4, "prompt": 64,
+                "max_seq": 96, "decode": 32},
+    "qwen2_vl": {"arch": "qwen2-vl-72b", "layers": 4, "batch": 2,
+                 "prompt": 2048, "max_seq": 2056, "decode": 8},
+    "kv_quant": {"arch": "llama3.2-3b", "batch": 4, "prompt": 2048,
+                 "max_seq": 2080, "decode": 32},
+}
+# the reference's own bound on decode through the int8 cache against full
+# precision (tests/test_nn_models.py::test_int8_kv_cache_decode_close): the
+# largest logit gap over the largest logit
+KV_QUANT_REL = 0.08
+
+
+def k4_counted(fn):
+    """``fn()`` with K4's counts set to 0 just before and the inputs of
+    every K4 call captured: (result, wall s, launches, [(args, kwargs)])."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    calls, real = [], ops.flash_attention
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    ops.flash_attention = spy
+    try:
+        fa.reset_launches()
+        out, wall = sync_time(fn)
+        launches = dict(fa.LAUNCHES)
+    finally:
+        ops.flash_attention = real
+    return out, wall, launches, calls
+
+
+def k4_path(label: str, launches: dict, calls: list, want: int) -> dict:
+    """K4's launches on one path (``want`` of them, all bf16 on the tensor
+    cores), every call held to its plain version and timed: the summed
+    figures of its calls."""
+    from repro_torch.kernels import flash_attention as fa
+
+    if launches["flash_attention"] != want or \
+            launches["flash_attention_tc"] != want or len(calls) != want:
+        raise AssertionError(f"{label}: K4 launched {launches} with "
+                             f"{len(calls)} calls, expected {want}, all on "
+                             f"the tensor cores")
+    errs, figs = [], []
+    for args, kw in calls:
+        causal = kw.get("causal", True)
+        errs.append(k4_err(fa, *args, causal))
+        figs.append(k4_call_figures(fa, *args, causal))
+    total = {k: sum(f[k] for f in figs) for k in
+             ("ms", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+              "flops", "bytes")}
+    shapes = sorted({(tuple(a[0].shape), tuple(a[1].shape),
+                      kw.get("causal", True)) for a, kw in calls})
+    n_full = sum(not kw.get("causal", True) for _, kw in calls)
+    log(f"K4 on {label}: {len(calls)} calls ({n_full} non-causal; q, k, "
+        f"causal: {shapes}), bf16: wrapper {total['ms']:.4f} ms, launch alone"
+        f" {total['kernel_ms']:.4f} ms "
+        f"({total['flops'] / total['kernel_ms'] / 1e9:.1f} TFLOP/s), SDPA "
+        f"{total['library_ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
+        f"bound {total['bound_ms']:.4f} ms ({figs[0]['bound_by']}); max abs "
+        f"err {max(errs):.3g}")
+    return dict(launches=launches["flash_attention"],
+                tc_launches=launches["flash_attention_tc"],
+                calls=len(calls), non_causal=n_full,
+                inputs=[[list(q), list(k), c] for q, k, c in shapes],
+                max_abs_err=max(errs), bound_by=figs[0]["bound_by"],
+                **{k: total[k] for k in ("ms", "kernel_ms", "plain_ms",
+                                         "library_ms", "bound_ms")})
+
+
+def model_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def cache_bytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size() for g in cache.values()
+               for t in g.values())
+
+
+def check_finite(what: str, logits, cache=None) -> None:
+    if not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{what}: logits are not finite")
+    for group in (cache or {}).values():
+        for name, t in group.items():
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{what}: cache {name} is not finite")
+
+
+def decode_run(what: str, model, cfg, cache, tok, start: int, steps: int):
+    """``steps`` greedy ``make_serve_step`` calls from ``tok`` at
+    ``start``, no K4 launch among them: (last logits, ms a step after the
+    first, the first step's ms, the tokens)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.steps import make_serve_step
+
+    serve_step = make_serve_step(cfg)
+    before = dict(fa.LAUNCHES)
+    walls, out = [], []
+    for i in range(steps):
+        (logits, cache), w = sync_time(
+            lambda: serve_step(model, cache, tok, start + i))
+        walls.append(w)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    if fa.LAUNCHES != before:
+        raise AssertionError(f"{what}: decode launched K4")
+    check_finite(f"{what} decode", logits)
+    step_ms = 1e3 * sum(walls[1:]) / max(steps - 1, 1)
+    return logits, step_ms, 1e3 * walls[0], torch.stack(out, 1)
+
+
+def prefill_run(what: str, cfg, model, batch: dict, max_seq: int,
+                want_k4: int, around=contextlib.nullcontext):
+    """A warm-up prefill, one timed (peak memory read), one counted (K4's
+    calls captured, inside the context ``around()``): (logits, cache, wall
+    s, peak bytes, K4 figures' inputs (launches, calls), the step)."""
+    from repro_torch.launch.steps import make_prefill_step
+
+    prefill_step = make_prefill_step(cfg, max_seq=max_seq)
+    t_warm = sync_time(lambda: prefill_step(model, batch))[1]
+    torch.cuda.reset_peak_memory_stats()
+    t_pre = sync_time(lambda: prefill_step(model, batch))[1]
+    peak = torch.cuda.max_memory_allocated()
+    with around():
+        (logits, cache), t_counted, launches, calls = k4_counted(
+            lambda: prefill_step(model, batch))
+    if launches["flash_attention"] != want_k4:
+        raise AssertionError(f"{what} prefill launched K4 {launches}, "
+                             f"expected {want_k4}")
+    check_finite(f"{what} prefill", logits, cache)
+    B, S = next(iter(batch.values())).shape[:2]
+    log(f"{what} prefill {B} x {S}: {t_pre:.4f} s wall ({B * S / t_pre:.0f}"
+        f" positions/s; warm-up {t_warm:.3f} s, counted run "
+        f"{t_counted:.3f} s); max_memory_allocated {peak} bytes; "
+        f"{launches['flash_attention']} K4 launches; cache "
+        + ", ".join(f"{g}/{k} {tuple(t.shape)} {str(t.dtype)[6:]}"
+                    for g, d in cache.items() for k, t in d.items()))
+    return logits, cache, t_pre, peak, (launches, calls), prefill_step
+
+
+def moe_layer_split(cfg, lp, xf) -> None:
+    """One MoE layer of ``lp`` on the tokens ``xf`` [T, d] split by CUDA
+    events into routing (router product, softmax, top-k), dispatch (sort,
+    counts, the buffer's gather), the expert products, the combine and the
+    shared experts."""
+    from repro_torch.nn import moe
+    from repro_torch.nn.layers import mlp
+
+    T = xf.shape[0]
+    C = moe.capacity(T, cfg)
+    p = lp["moe"]
+    gates, idx, _ = moe.route(xf, p["router"], cfg)
+    buf, plan = moe.dispatch(xf, idx, C, cfg.n_experts)
+    out = moe.experts(buf, p)
+    shared = {k: p[f"shared_{k}"] for k in ("w1", "w3", "w2")}
+    parts = {
+        "route": lambda: moe.route(xf, p["router"], cfg),
+        "dispatch": lambda: moe.dispatch(xf, idx, C, cfg.n_experts),
+        "experts": lambda: moe.experts(buf, p),
+        "combine": lambda: moe.combine(out, gates, plan, T),
+        "shared": lambda: mlp(xf, shared, "swiglu"),
+        "whole": lambda: moe.moe_ffn(xf[None], p, cfg),
+    }
+    ms = {k: cuda_ms(fn, 5) for k, fn in parts.items()}
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    flops = 3 * 2 * E * C * d * f
+    wbytes = 3 * E * d * f * buf.element_size()
+    log(f"deepseek MoE layer split (T {T}, E {E}, C {C}, bf16, CUDA events):"
+        + ", ".join(f" {k} {v:.4f} ms" for k, v in ms.items())
+        + f"; expert products {flops} flops over E x C slots "
+        f"({flops / ms['experts'] / 1e9:.1f} TFLOP/s; bound "
+        f"{max(flops / BF16_FLOPS, wbytes / HBM_BYTES_PER_S) * 1e3:.4f} ms),"
+        f" of which the routed T K = {T * cfg.n_experts_active} assignments "
+        f"fill {100 * T * cfg.n_experts_active / (E * C):.1f} %")
+
+
+def moe_layer_on_cpu(cfg, lp, xf) -> None:
+    """One full-width MoE layer on ``xf`` [T, d] in float32 on cuda and on
+    cpu: routing equal, outputs within MODEL_RTOL relative L2, aux within
+    1e-6."""
+    from repro_torch.nn import moe
+
+    p32 = {k: v.float() for k, v in lp["moe"].items()}
+    x32 = xf.float()
+    T = x32.shape[0]
+    (y_g, aux_g), t_g = sync_time(lambda: moe.moe_ffn(x32[None], p32, cfg))
+    pc = {k: v.cpu() for k, v in p32.items()}
+    xc = x32.cpu()
+    t = time.perf_counter()
+    y_c, aux_c = moe.moe_ffn(xc[None], pc, cfg)
+    t_c = time.perf_counter() - t
+    _, idx_g, _ = moe.route(x32, p32["router"], cfg)
+    _, idx_c, _ = moe.route(xc, pc["router"], cfg)
+    if not torch.equal(idx_g.cpu(), idx_c):
+        raise AssertionError(f"MoE layer routing differs on "
+                             f"{int((idx_g.cpu() != idx_c).any(-1).sum())} "
+                             f"of {T} tokens between cuda and cpu")
+    rel = rel_l2(y_g.double().cpu(), y_c.double())
+    if not rel <= MODEL_RTOL or abs(float(aux_g) - float(aux_c)) > 1e-6:
+        raise AssertionError(f"MoE layer cuda vs cpu: relative L2 {rel}, "
+                             f"aux {float(aux_g)} vs {float(aux_c)}")
+    log(f"deepseek MoE layer at full width, {T} tokens, float32: routing "
+        f"equal on cuda and cpu, output relative L2 {rel:.3g} (limit "
+        f"{MODEL_RTOL}), aux {float(aux_g):.6f} / {float(aux_c):.6f}; cuda "
+        f"{t_g:.3f} s, cpu {t_c:.3f} s")
+
+
+def deepseek_full() -> dict:
+    """deepseek-moe-16b as published (28 layers: one dense, 27 of 64
+    routed experts top-6 and 2 shared), bf16 random weights: prefill of
+    4 x 2048 tokens (28 K4 launches), the capacity drops and aux loss a
+    layer, 32 greedy decode steps, a profiled prefill, one MoE layer split
+    by parts and held to itself on the cpu, and ``ServeEngine``.  Returns
+    K4's figures on the prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.nn import init_params, moe
+
+    r = REST["deepseek"]
+    cfg = get_config(r["arch"])
+    B, S = r["batch"], r["prompt"]
+    model, t_init = sync_time(lambda: init_params(cfg, seed=0))
+    n_moe = cfg.n_layers - cfg.first_dense_layers
+    expert_bytes = sum(model_bytes(lp["moe"]) - lp["moe"]["router"].numel()
+                       * lp["moe"]["router"].element_size()
+                       for lp in model.layers)
+    log(f"{cfg.name}: {cfg.n_layers} layers ({cfg.first_dense_layers} dense "
+        f"of d_ff {cfg.d_ff}, {n_moe} MoE of {cfg.n_experts} experts top-"
+        f"{cfg.n_experts_active} and {cfg.n_shared_experts} shared of "
+        f"{cfg.moe_d_ff}), d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}; "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"{model_bytes(model)} bytes on the card ({expert_bytes} of them "
+        f"expert weights), init_params(seed=0) {t_init:.2f} s; capacity at "
+        f"{B * S} tokens {moe.capacity(B * S, cfg)}")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    batch = {"tokens": tokens}
+    # the routing of the counted run: each MoE layer's aux loss and kept
+    # assignments, and the first MoE layer's input
+    routed = []
+
+    @contextlib.contextmanager
+    def spied():
+        real = (moe.route, moe.dispatch)
+
+        def route(xf, router, c):
+            out = real[0](xf, router, c)
+            routed.append({"aux": out[2], "x": None if routed else xf})
+            return out
+
+        def dispatch(*args):
+            buf, plan = real[1](*args)
+            routed[-1]["kept"] = plan.keep.sum()
+            return buf, plan
+
+        moe.route, moe.dispatch = route, dispatch
+        try:
+            yield
+        finally:
+            moe.route, moe.dispatch = real
+
+    logits, cache, t_pre, peak, k4_in, prefill_step = prefill_run(
+        cfg.name, cfg, model, batch, r["max_seq"], cfg.n_layers, spied)
+    if len(routed) != n_moe:
+        raise AssertionError(f"{len(routed)} MoE layers routed, expected "
+                             f"{n_moe}")
+    TK = B * S * cfg.n_experts_active
+    drops = [TK - int(x["kept"]) for x in routed]
+    auxes = [float(x["aux"]) for x in routed]
+    log(f"{cfg.name} prefill routing: {TK} assignments a layer; dropped for "
+        f"capacity a layer {drops} (total {sum(drops)}, "
+        f"{100 * sum(drops) / (TK * n_moe):.3f} %); aux a layer "
+        + ", ".join(f"{a:.5f}" for a in auxes) + f"; summed {sum(auxes):.5f}")
+    kv = sum(t.numel() * t.element_size() for g in cache.values()
+             for k, t in g.items() if k in ("k", "v"))
+    read = model_bytes(model) - model.embed.numel() * \
+        model.embed.element_size() + kv
+    logits, step_ms, first_ms, toks = decode_run(
+        cfg.name, model, cfg, cache, logits.argmax(-1), S, r["decode"])
+    log(f"{cfg.name} decode: {r['decode']} greedy steps from position {S}, "
+        f"{step_ms:.3f} ms a step after the first ({first_ms:.3f} ms), "
+        f"{B / step_ms * 1e3:.1f} tokens/s; bound {read} bytes a step (every"
+        f" weight but the embedding, {expert_bytes} of them experts the "
+        f"dense dispatch reads, and the k/v cache) = "
+        f"{read / HBM_BYTES_PER_S * 1e3:.3f} ms; no K4 launch; row 0's "
+        f"tokens {toks[0].tolist()}")
+    del cache
+    rows = device_share(lambda: prefill_step(model, batch))
+    k4_dev = sum(us for us, _, key in rows if "flash_fwd" in key) / 1e3 \
+        if rows else None
+    log(f"{cfg.name} prefill: K4 device time under the profiler {k4_dev} ms")
+    xf = routed[0]["x"]
+    lp = model.layers[0]
+    moe_layer_split(cfg, lp, xf)
+    moe_layer_on_cpu(cfg, lp, xf[:r["layer_tokens"]])
+    del routed, xf
+    serve_engine(cfg, model, fa, ssd)
+    figs = k4_path(f"{cfg.name}'s prefill", *k4_in, cfg.n_layers)
+    figs.update(device_ms=k4_dev, prefill_s=t_pre, peak_bytes=peak,
+                decode_ms=step_ms, dropped=sum(drops), aux=sum(auxes))
+    del model, k4_in
+    torch.cuda.empty_cache()
+    return figs
+
+
+def whisper_full() -> dict:
+    """whisper-small as published (12 encoder and 12 decoder layers, bf16
+    random weights) on 4 x 1500 frame embeddings and a 4 x 64-token
+    prompt: 24 K4 launches (12 non-causal at S 1500, 12 causal), then 32
+    greedy decode steps through cross-attention on the cached encoder
+    output, which stays as it was."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import init_params
+
+    r = REST["whisper"]
+    cfg = get_config(r["arch"])
+    B = r["batch"]
+    model, t_init = sync_time(lambda: init_params(cfg, seed=0))
+    log(f"{cfg.name}: {cfg.encoder_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, {cfg.encoder_seq} frames; "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"init_params(seed=0) {t_init:.2f} s")
+    inputs = prompt_inputs(cfg, B, r["prompt"], 0)
+    batch = {"tokens": torch.from_numpy(inputs["tokens"]).cuda(),
+             "frames": torch.from_numpy(inputs["enc_frames"]).cuda()}
+    logits, cache, t_pre, peak, k4_in, _ = prefill_run(
+        cfg.name, cfg, model, batch, r["max_seq"],
+        cfg.n_layers + cfg.encoder_layers)
+    full = [a for a, kw in k4_in[1] if not kw.get("causal", True)]
+    if len(full) != cfg.encoder_layers or any(
+            a[0].shape[1] != cfg.encoder_seq for a in full):
+        raise AssertionError(f"whisper: {len(full)} non-causal K4 calls at "
+                             f"{[tuple(a[0].shape) for a in full]}")
+    enc = cache["layers"]["enc_out"].clone()
+    logits, step_ms, first_ms, toks = decode_run(
+        cfg.name, model, cfg, cache, logits.argmax(-1), r["prompt"],
+        r["decode"])
+    if not torch.equal(cache["layers"]["enc_out"], enc):
+        raise AssertionError("whisper decode changed the cached encoder "
+                             "output")
+    log(f"{cfg.name} decode: {r['decode']} greedy steps through "
+        f"cross-attention onto {cfg.encoder_seq} encoder positions, "
+        f"{step_ms:.3f} ms a step after the first ({first_ms:.3f} ms); "
+        f"enc_out unchanged; row 0's tokens {toks[0].tolist()}")
+    figs = k4_path(f"{cfg.name}'s prefill", *k4_in,
+                   cfg.n_layers + cfg.encoder_layers)
+    figs.update(prefill_s=t_pre, peak_bytes=peak, decode_ms=step_ms)
+    del model, cache, enc, k4_in
+    torch.cuda.empty_cache()
+    return figs
+
+
+def qwen2_vl_cut() -> dict:
+    """qwen2-vl-72b at full width cut to 4 of its 80 layers, bf16 random
+    weights: prefill from 2 x 2048 patch embeddings through
+    ``frontend_proj`` (4 K4 launches at rep 8), ``forward_logits`` with
+    3-D positions of an image grid (t, h and w differ), held to its
+    (t, t, t) run's last row against prefill's, and 8 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import forward_logits, init_params
+
+    r = REST["qwen2_vl"]
+    cfg = dataclasses.replace(get_config(r["arch"]), n_layers=r["layers"])
+    B, S = r["batch"], r["prompt"]
+    model, t_init = sync_time(lambda: init_params(cfg, seed=0))
+    log(f"{cfg.name} cut to {cfg.n_layers} layers: d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{sum(p.numel() for p in model.parameters())} parameters, "
+        f"{model_bytes(model)} bytes, init_params(seed=0) {t_init:.2f} s")
+    embeds = torch.from_numpy(prompt_inputs(cfg, B, S, 0)["embeds"]).cuda()
+    logits, cache, t_pre, peak, k4_in, _ = prefill_run(
+        cfg.name, cfg, model, {"embeds": embeds}, r["max_seq"], cfg.n_layers)
+    i = torch.arange(S, device=embeds.device)
+    grid = torch.stack([i // 1024, (i // 32) % 32, i % 32], -1)
+    (full, _), t_fwd, launches, _ = k4_counted(lambda: forward_logits(
+        model, cfg, embeds=embeds, positions=grid.expand(B, S, 3)))
+    text, _ = forward_logits(model, cfg, embeds=embeds)
+    check_finite(f"{cfg.name} forward_logits", full)
+    last = rel_l2(text[:, -1].double().cpu(), logits.double().cpu())
+    moved = rel_l2(full[:, -1].double().cpu(), text[:, -1].double().cpu())
+    if launches["flash_attention"] != cfg.n_layers or not last <= 1e-2 \
+            or not moved > 1e-2:
+        raise AssertionError(f"{cfg.name} forward_logits: K4 {launches}, "
+                             f"(t, t, t) last row vs prefill {last}, grid "
+                             f"positions vs (t, t, t) {moved}")
+    del full, text
+    logits, step_ms, first_ms, toks = decode_run(
+        cfg.name, model, cfg, cache, logits.argmax(-1), S, r["decode"])
+    log(f"{cfg.name} forward_logits with image-grid positions (t, h, w "
+        f"differ) {t_fwd:.3f} s, {launches['flash_attention']} K4 launches;"
+        f" the (t, t, t) run's last row within {last:.3g} relative L2 of "
+        f"prefill's (bf16), the grid's {moved:.3g} from it; decode "
+        f"{r['decode']} steps {step_ms:.3f} ms a step after the first "
+        f"({first_ms:.3f} ms)")
+    figs = k4_path(f"{cfg.name}'s prefill (4 layers)", *k4_in, cfg.n_layers)
+    figs.update(prefill_s=t_pre, peak_bytes=peak, decode_ms=step_ms)
+    del model, cache, embeds, k4_in
+    torch.cuda.empty_cache()
+    return figs
+
+
+def kv_quant_full() -> dict:
+    """llama3.2-3b at full width with the int8 KV cache: prefill of
+    4 x 2048 tokens (28 K4 launches), then 32 decode steps on the int8
+    cache beside the same steps on the bf16 cache of the same model (both
+    fed the bf16 run's greedy tokens): the cache half the bytes (the
+    scales on top), every step's logits within KV_QUANT_REL of the bf16
+    run's relative to their largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.nn import init_params
+
+    r = REST["kv_quant"]
+    cfg_b = get_config(r["arch"])
+    cfg = dataclasses.replace(cfg_b, kv_quant=True)
+    B, S = r["batch"], r["prompt"]
+    model = init_params(cfg, seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).cuda()
+    logits, cache, t_pre, peak, k4_in, _ = prefill_run(
+        f"{cfg.name} kv_quant", cfg, model, {"tokens": tokens},
+        r["max_seq"], cfg.n_layers)
+    logits_b, cache_b = make_prefill_step(cfg_b, max_seq=r["max_seq"])(
+        model, {"tokens": tokens})
+    qb, bb = cache_bytes(cache), cache_bytes(cache_b)
+    kv_q = sum(cache["layers"][k].numel() for k in ("k", "v"))
+    if 2 * kv_q != bb or qb != kv_q + 4 * sum(
+            cache["layers"][k].numel() for k in ("k_scale", "v_scale")):
+        raise AssertionError(f"int8 cache {qb} bytes against bf16 {bb}")
+    step, step_b = make_serve_step(cfg), make_serve_step(cfg_b)
+    rels, walls = [rel_max(logits, logits_b)], []
+    tok = logits_b.argmax(-1)
+    for i in range(r["decode"]):
+        (logits, cache), w = sync_time(
+            lambda: step(model, cache, tok, S + i))
+        walls.append(w)
+        logits_b, cache_b = step_b(model, cache_b, tok, S + i)
+        rels.append(rel_max(logits, logits_b))
+        tok = logits_b.argmax(-1)
+    check_finite(f"{cfg.name} kv_quant decode", logits, cache)
+    if not max(rels) < KV_QUANT_REL:
+        raise AssertionError(f"int8 cache logits off the bf16 cache's by "
+                             f"{rels}")
+    step_ms = 1e3 * sum(walls[1:]) / (len(walls) - 1)
+    log(f"{cfg.name} kv_quant: cache {qb} bytes against the bf16 cache's "
+        f"{bb} ({qb / bb:.4f}; k/v exactly half, float32 scales on top); "
+        f"prefill and {r['decode']} decode steps on the int8 cache, logits "
+        f"within {max(rels):.4f} of the bf16 cache's (largest gap over "
+        f"largest logit; limit {KV_QUANT_REL}); decode {step_ms:.3f} ms a "
+        f"step after the first")
+    figs = k4_path(f"{cfg.name} kv_quant's prefill", *k4_in, cfg.n_layers)
+    figs.update(prefill_s=t_pre, peak_bytes=peak, decode_ms=step_ms,
+                cache_ratio=qb / bb, worst_rel=max(rels))
+    del model, cache, cache_b, k4_in
+    torch.cuda.empty_cache()
+    return figs
+
+
+def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def rest_of_nn() -> dict:
+    """Phase 13: the families of ``nn/`` beyond hymba at full width; K4's
+    figures on each path, keyed by config."""
+    return {"deepseek-moe-16b": deepseek_full(),
+            "whisper-small": whisper_full(),
+            "qwen2-vl-72b (4 layers)": qwen2_vl_cut(),
+            "llama3.2-3b kv_quant": kv_quant_full()}
+
+
+# -- phase 14: K4 and K5 figures --------------------------------------------------
 
 def k4_call_figures(fa, q, k, v, causal) -> dict:
     """CUDA-event times of one K4 call (the wrapper, the launch alone, the
@@ -3075,6 +3628,10 @@ def main() -> int:
     execution = execution_layer(ks, pats, clock_mhz * 1e6)
     small_model()
     model_run = full_model()
+    model_rows = model_kernel_rows(*model_run)
+    del model_run                   # hymba's captured K4/K5 inputs
+    torch.cuda.empty_cache()
+    model_rows[0]["rest_of_nn"] = rest_of_nn()
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
     for row in rows:        # K1 and K2: their calls on the registry sweep,
         row["registry"] = registry[row["name"]]   # on delta re-pricing, on
@@ -3082,7 +3639,7 @@ def main() -> int:
         row["service"] = service[row["name"]]     # on the execution layer
         row["exec"] = execution[row["name"]]
     rows.append(k3_row(*k3_run))
-    rows.extend(model_kernel_rows(*model_run))
+    rows.extend(model_rows)
     log(f"paper measurements launches (Figs. 10-11 at full width): "
         f"{paper_launches}")
     log("registry sweep launches: " + ", ".join(

@@ -1,11 +1,8 @@
 """Architecture registry of the port: the 10 assigned configs.
 
-Copies of ``repro.configs``.  Every id builds its ``ArchConfig``; the
-dense, ssm and hybrid ones also run on the port's blocks, while the MoE,
-VLM and audio ids (deepseek-moe-16b, qwen3-moe-30b-a3b, qwen2-vl-72b,
-whisper-small) raise ``NotImplementedError`` when a model is built from
-them (``repro_torch.nn.model``): their blocks are not ported yet.  The
-workload registry needs only their configs.
+Copies of ``repro.configs``.  Every id builds its ``ArchConfig``, and
+every one runs on the port's model (``repro_torch.nn``); the workload
+registry needs only the configs.
 """
 from __future__ import annotations
 

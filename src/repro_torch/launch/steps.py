@@ -1,7 +1,7 @@
 """Prefill and serve step functions (counterpart of ``repro.launch.steps``).
 
 ``make_train_step`` and the abstract input specs of the dry-run wait for the
-training slice and the compile-and-price path (ROADMAP queue items 5-7).
+training slice and the compile-and-price path (ROADMAP queue items 6-7).
 """
 from __future__ import annotations
 
@@ -12,10 +12,14 @@ from repro_torch.nn.config import ArchConfig
 def make_prefill_step(cfg: ArchConfig, max_seq: int | None = None,
                       device=None):
     """``prefill_step(params, batch) -> (last_logits [B, V], cache)`` with
-    ``batch["tokens"]`` [B, S] and a cache of ``max_seq`` positions (the
-    prompt's length when None), on ``device`` (None: CUDA)."""
+    ``batch["tokens"]`` [B, S] or ``batch["embeds"]`` [B, S, d] (patch
+    embeddings), ``batch["frames"]`` [B, S_enc, d] for an encoder, and a
+    cache of ``max_seq`` positions (the prompt's length when None), on
+    ``device`` (None: CUDA)."""
     def prefill_step(params, batch):
-        return M.prefill(params, cfg, batch["tokens"], max_seq=max_seq,
+        return M.prefill(params, cfg, tokens=batch.get("tokens"),
+                         embeds=batch.get("embeds"),
+                         enc_frames=batch.get("frames"), max_seq=max_seq,
                          device=device)
     return prefill_step
 

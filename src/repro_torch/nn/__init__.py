@@ -1,5 +1,6 @@
-"""The language model of the port: hybrid, SSM and dense-attention decoders
-for prefill and decode (counterpart of ``repro.nn``)."""
+"""The language model of the port: dense, MoE, SSM and hybrid decoders,
+whisper's encoder-decoder and qwen2-vl's patch frontend, for prefill,
+decode and the full-sequence forward (counterpart of ``repro.nn``)."""
 from .config import ArchConfig
 from .model import (Model, cache_shapes, decode_step, forward_logits,
                     init_cache, init_params, param_shapes, params_from_numpy,

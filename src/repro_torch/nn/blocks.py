@@ -1,34 +1,34 @@
-"""Decoder blocks for the attn, ssm and hybrid block kinds (counterpart of
+"""Decoder and encoder blocks for the attn, moe, ssm and hybrid block kinds
+and whisper's encoder and cross-attention decoder (counterpart of
 ``repro.nn.blocks``).
 
 Each block is a function ``(x, layer_params, cfg, ...) -> x`` over one
-layer's parameters; the model loops over its layers in Python.  The moe
-block kind and the whisper blocks (``encoder_block``, ``cross_block``) are
-not ported yet and raise ``NotImplementedError``.
+layer's parameters; the model loops over its layers in Python.
 """
 from __future__ import annotations
 
 import torch
 
-from .attention import attention, decode_attention
+from .attention import attention, cross_attention, decode_attention
 from .config import ArchConfig
 from .layers import mlp, norm
+from .moe import moe_ffn
 from .ssm import ssm_decode, ssm_mixer
-
-_WAITS = "waits for the rest of ROADMAP queue item 5 (nn/)"
 
 
 def _norm(x, p, cfg):
     return norm(x, p, cfg.norm_type, cfg.norm_eps)
 
 
-def _check_kind(cfg: ArchConfig) -> str:
-    if cfg.cross_attention:
-        raise NotImplementedError(f"cross-attention blocks {_WAITS}")
-    kind = cfg.block_kind
-    if kind == "moe":
-        raise NotImplementedError(f"MoE blocks {_WAITS}")
-    return kind
+def _ffn(x, lp, cfg: ArchConfig):
+    """The block's feed-forward half: (x, aux loss of its MoE layer or
+    None)."""
+    if cfg.block_kind == "moe":
+        m_out, aux = moe_ffn(_norm(x, lp["ln2"], cfg), lp["moe"], cfg)
+        return x + m_out, aux
+    if cfg.d_ff:
+        x = x + mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type)
+    return x, None
 
 
 # ----------------------------------------------------------- full-seq -------
@@ -39,8 +39,7 @@ def block_forward(x, lp, cfg: ArchConfig, positions, causal: bool = True,
     Returns (x, aux_loss, cache_el): ``cache_el`` is a dict of decode-cache
     elements ({"k","v"} and/or {"conv","ssd"}) when ``collect_cache``.
     """
-    kind = _check_kind(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    kind = cfg.block_kind
     cache_el: dict = {}
 
     if kind == "ssm":
@@ -69,34 +68,52 @@ def block_forward(x, lp, cfg: ArchConfig, positions, causal: bool = True,
             cache_el.update(k=kv[0], v=kv[1])
         x = x + a_out
 
-    if cfg.d_ff:
-        x = x + mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type)
+    x, aux = _ffn(x, lp, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux, cache_el
 
 
 def encoder_block(x, lp, cfg: ArchConfig, positions):
-    """Bidirectional encoder block (whisper): not ported yet."""
-    raise NotImplementedError(f"encoder blocks {_WAITS}")
+    """Bidirectional encoder block (whisper): attention through K4 with no
+    mask, then the MLP."""
+    a_out, _ = attention(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
+                         positions, causal=False)
+    x = x + a_out
+    return x + mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type)
 
 
 def cross_block(x, lp, cfg: ArchConfig, positions, enc_out):
-    """Decoder block with cross-attention (whisper): not ported yet."""
-    raise NotImplementedError(f"cross-attention blocks {_WAITS}")
+    """Decoder block with cross-attention (whisper): causal
+    self-attention through K4, cross-attention onto ``enc_out``, the MLP.
+    Returns (x, (k, v)) of the self-attention."""
+    a_out, kv = attention(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
+                          positions, causal=True)
+    x = x + a_out
+    x = x + cross_attention(_norm(x, lp["ln3"], cfg), lp["xattn"], cfg,
+                            enc_out)
+    x = x + mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type)
+    return x, kv
 
 
 # -------------------------------------------------------------- decode ------
 def block_decode(x, lp, cfg: ArchConfig, cache_l: dict, pos: int):
     """One-token decode through one block.  Returns (x, new_cache_l): the
-    k and v entries are ``cache_l``'s own tensors, written in place at
-    ``pos``; conv and ssd are new tensors."""
-    kind = _check_kind(cfg)
+    k and v entries (and under ``cfg.kv_quant`` their scales) are
+    ``cache_l``'s own tensors, written in place at ``pos``; conv and ssd
+    are new tensors; ``enc_out`` passes through unchanged."""
+    kind = cfg.block_kind
     new_cache = dict(cache_l)
 
     def _dec_attn(xn):
-        a_out, nk, nv = decode_attention(xn, lp["attn"], cfg, cache_l["k"],
-                                         cache_l["v"], pos)
-        new_cache.update(k=nk, v=nv)
-        return a_out
+        res = decode_attention(xn, lp["attn"], cfg, cache_l["k"],
+                               cache_l["v"], pos,
+                               k_scale=cache_l.get("k_scale"),
+                               v_scale=cache_l.get("v_scale"))
+        new_cache.update(k=res[1], v=res[2])
+        if cfg.kv_quant:
+            new_cache.update(k_scale=res[3], v_scale=res[4])
+        return res[0]
 
     if kind == "ssm":
         y, new_conv, new_ssd = ssm_decode(_norm(x, lp["ln1"], cfg), lp["ssm"],
@@ -113,6 +130,8 @@ def block_decode(x, lp, cfg: ArchConfig, cache_l: dict, pos: int):
     else:
         x = x + _dec_attn(_norm(x, lp["ln1"], cfg))
 
-    if cfg.d_ff:
-        x = x + mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type)
+    if cfg.cross_attention:
+        x = x + cross_attention(_norm(x, lp["ln3"], cfg), lp["xattn"], cfg,
+                                cache_l["enc_out"])
+    x, _ = _ffn(x, lp, cfg)
     return x, new_cache

@@ -1,8 +1,7 @@
 """Architecture configuration, a copy of ``repro.nn.config.ArchConfig``:
 dense / MoE / SSM / hybrid decoder-only LMs, an encoder-decoder (whisper)
-and modality-stub backbones (VLM, audio).  The port runs the attn, ssm and
-hybrid block kinds so far; the other fields are kept so that a config
-compares field for field with the reference's."""
+and modality-stub backbones (VLM, audio); it compares field for field with
+the reference's."""
 from __future__ import annotations
 
 import dataclasses

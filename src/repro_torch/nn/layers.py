@@ -2,7 +2,7 @@
 
 Params are dicts of tensors; every function is pure.  Compute runs in the
 weights' dtype with the reference's float32 upcasts for norms, RoPE and the
-MLP activation.  ``apply_m_rope`` (qwen2-vl) is not ported yet.
+MLP activation.
 """
 from __future__ import annotations
 
@@ -55,14 +55,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Half-split RoPE.  x: [..., S, H, D]; positions: broadcastable to
     [..., S]."""
-    d = x.shape[-1]
-    freqs = _rope_freqs_on(d, float(theta), x.device)
-    ang = positions[..., None].float() * freqs                  # [..., S, D/2]
+    freqs = _rope_freqs_on(x.shape[-1], float(theta), x.device)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation of x [..., S, H, D] by angles [..., S, D/2]."""
     cos = torch.cos(ang)[..., None, :]                          # [..., S, 1, D/2]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+@functools.cache
+def _m_rope_sections_on(half: int, sections: tuple,
+                        device: torch.device) -> torch.Tensor:
+    """For each of the ``half`` frequency slots, the position component
+    (0 t, 1 h, 2 w) it takes, on ``device``: section sizes
+    ``floor(half * w / sum(w))`` with the remainder added to section 0."""
+    w = np.asarray(sections, dtype=np.float64)
+    sizes = np.floor(half * w / w.sum()).astype(int)
+    sizes[0] += half - sizes.sum()
+    return torch.from_numpy(np.repeat(np.arange(3), sizes)).to(device)
+
+
+def apply_m_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                 sections=(2, 1, 1)) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the head dim's frequency slots split into (t, h, w)
+    sections by the relative weights ``sections``.
+
+    x: [..., S, H, D]; positions: [..., S, 3] (temporal, height, width ids;
+    text tokens use (t, t, t)).
+    """
+    d = x.shape[-1]
+    freqs = _rope_freqs_on(d, float(theta), x.device)
+    slot = _m_rope_sections_on(d // 2, tuple(sections), x.device)
+    pos = positions.float().index_select(-1, slot)              # [..., S, D/2]
+    return _rotate(x, pos * freqs)
 
 
 # ---------------------------------------------------------------- MLP -------

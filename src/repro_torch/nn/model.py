@@ -1,25 +1,34 @@
-"""The language model: parameter and cache shapes, init, and the prefill and
-decode forwards (counterpart of ``repro.nn.model``) for the attn, ssm and
-hybrid block kinds.
+"""The language model: parameter and cache shapes, init, and the prefill,
+decode and full-sequence forwards (counterpart of ``repro.nn.model``) for
+every family of the configs: dense, MoE with leading dense layers and
+shared experts, SSM, hybrid, the encoder-decoder (whisper) and the patch
+frontend with M-RoPE (qwen2-vl).
 
-The parameters live in a :class:`Model`, an ``nn.Module`` whose layers are
-an ``nn.ModuleList`` (the reference stacks them on axis 0 and scans; the
-port loops in Python).  :func:`params_from_numpy` carries the reference's
-parameter tree, as numpy arrays with the layers stacked, into a
-:class:`Model`, and :func:`params_to_numpy` carries it back.  The decode
-cache is the reference's: ``{"layers": {"k", "v", "conv", "ssd"}}``, each
-stacked ``[L, ...]``, bf16 k/v and float32 conv/ssd from
-:func:`init_cache`; after :func:`prefill` k/v are in the weights' dtype, as
-in the reference.  :func:`decode_step` updates the cache in place and
-returns it.
+The parameters live in a :class:`Model`, an ``nn.Module`` whose stacks
+(``layers``, ``dense_layers``, ``encoder``) are ``nn.ModuleList``s of one
+layer each (the reference stacks them on axis 0 and scans; the port loops
+in Python).  :func:`params_from_numpy` carries the reference's parameter
+tree, as numpy arrays with the layers stacked, into a :class:`Model`, and
+:func:`params_to_numpy` carries it back.  The decode cache is the
+reference's: ``{"layers": {"k", "v", "k_scale", "v_scale", "conv", "ssd",
+"enc_out"}, "dense_layers": {"k", "v"}}`` as the config has them, each
+stacked ``[L, ...]``; :func:`decode_step` updates it in place and returns
+it.
+
+:func:`prefill` emits the whole cache that :func:`decode_step` reads, where
+the reference's leaves out two parts (ROADMAP §3, "Faults of the reference,
+mended in the port"): the leading dense layers' k/v, and under ``kv_quant``
+the int8 k/v with their scales, quantised as decode quantises.
 
 Every entry point takes ``device=None``, meaning CUDA, and raises without a
-CUDA device; the CPU runs only when asked for with ``device="cpu"``.  Not
-ported yet (``NotImplementedError``): MoE and leading dense layers,
-encoder-decoder and modality frontends, the int8 KV cache, and
-``lm_loss`` with the training step.
+CUDA device; the CPU runs only when asked for with ``device="cpu"``.  The
+training objective (``lm_loss``, ``forward_hidden``) waits for ROADMAP
+queue item 6, the dry-run's abstract trees (``abstract_params``,
+``abstract_cache``) for item 7.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -27,26 +36,17 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 
-from .blocks import block_decode, block_forward
+from .attention import quantize_kv
+from .blocks import block_decode, block_forward, cross_block, encoder_block
 from .config import ArchConfig
 from .layers import norm
+from .moe import moe_param_shapes
 from .ssm import ssm_decode_state_shapes, ssm_param_shapes
 
-_WAITS = "waits for the rest of ROADMAP queue item 5 (nn/)"
 _F32_LEAVES = ("scale", "bias", "A_log", "D", "dt_bias", "norm", "q_norm",
                "k_norm")
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    for what, unported in (("MoE layers", cfg.is_moe),
-                           ("leading dense layers", cfg.first_dense_layers),
-                           ("the encoder", cfg.encoder_layers),
-                           ("cross-attention", cfg.cross_attention),
-                           ("modality frontends", cfg.frontend),
-                           ("M-RoPE", cfg.m_rope),
-                           ("the int8 KV cache", cfg.kv_quant)):
-        if unported:
-            raise NotImplementedError(f"{cfg.name}: {what} {_WAITS}")
+#: The parameter groups stacked on axis 0 in the reference's tree.
+STACKS = ("layers", "dense_layers", "encoder")
 
 
 # ==================================================================== shapes =
@@ -76,28 +76,52 @@ def _mlp_shapes(cfg: ArchConfig) -> dict:
 
 def _layer_shapes(cfg: ArchConfig) -> dict:
     """Shapes of one layer's parameters (not stacked)."""
-    _check_ported(cfg)
     kind = cfg.block_kind
     s: dict = {"ln1": _norm_shapes(cfg)}
-    if kind in ("attn", "hybrid"):
+    if kind in ("attn", "moe", "hybrid"):
         s["attn"] = _attn_shapes(cfg)
     if kind in ("ssm", "hybrid"):
         s["ssm"] = ssm_param_shapes(cfg)
-    if cfg.d_ff:
+    if kind == "moe":
+        s["moe"] = moe_param_shapes(cfg)
+        s["ln2"] = _norm_shapes(cfg)
+    elif cfg.d_ff:
         s["mlp"] = _mlp_shapes(cfg)
         s["ln2"] = _norm_shapes(cfg)
+    if cfg.cross_attention:
+        s["xattn"] = _attn_shapes(cfg)
+        s["ln3"] = _norm_shapes(cfg)
     return s
+
+
+def _plain_layer_shapes(cfg: ArchConfig) -> dict:
+    """A leading dense layer's or an encoder layer's: attention and MLP."""
+    return {"ln1": _norm_shapes(cfg), "attn": _attn_shapes(cfg),
+            "ln2": _norm_shapes(cfg), "mlp": _mlp_shapes(cfg)}
 
 
 def param_shapes(cfg: ArchConfig) -> dict:
     """Nested dict of parameter shapes (tuples); layers stacked on axis 0,
     as in the reference."""
+    def stack(shapes: dict, n: int) -> dict:
+        return {g: {k: (n,) + sh for k, sh in d.items()}
+                for g, d in shapes.items()}
+
     shapes: dict = {"embed": (cfg.vocab_size, cfg.d_model),
                     "final_norm": _norm_shapes(cfg)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (cfg.d_model, cfg.vocab_size)
-    shapes["layers"] = {g: {k: (cfg.n_layers,) + sh for k, sh in d.items()}
-                        for g, d in _layer_shapes(cfg).items()}
+    shapes["layers"] = stack(_layer_shapes(cfg),
+                             cfg.n_layers - cfg.first_dense_layers)
+    if cfg.first_dense_layers:
+        shapes["dense_layers"] = stack(_plain_layer_shapes(cfg),
+                                       cfg.first_dense_layers)
+    if cfg.encoder_layers:
+        shapes["encoder"] = stack(_plain_layer_shapes(cfg),
+                                  cfg.encoder_layers)
+        shapes["enc_final_norm"] = _norm_shapes(cfg)
+    if cfg.frontend:
+        shapes["frontend_proj"] = (cfg.d_model, cfg.d_model)
     return shapes
 
 
@@ -115,25 +139,41 @@ def _leaves(tree: dict, path=()):
             yield path + (k,), v
 
 
+def _dense_view(cfg: ArchConfig) -> ArchConfig:
+    """The config the leading dense layers run under: no experts."""
+    return dataclasses.replace(cfg, n_experts=0, n_experts_active=0)
+
+
 # ===================================================================== model =
+def _stack_module(layers: list) -> nn.ModuleList:
+    return nn.ModuleList(
+        nn.ModuleDict({g: nn.ParameterDict(d) for g, d in lp.items()})
+        for lp in layers)
+
+
 class Model(nn.Module):
     """The model's parameters: ``embed``, ``lm_head`` (untied configs),
-    ``final_norm`` and ``layers``, an ``nn.ModuleList`` of one
-    ``nn.ModuleDict`` of ``nn.ParameterDict`` groups (``ln1``, ``attn``,
-    ``ssm``, ``mlp``, ``ln2``) per layer.  No parameter requires grad.
-    Call it on tokens for :func:`forward_logits`."""
+    ``final_norm``, and the stacks ``layers``, ``dense_layers`` (deepseek's
+    leading dense layers) and ``encoder`` (whisper's), each an
+    ``nn.ModuleList`` of one ``nn.ModuleDict`` of ``nn.ParameterDict``
+    groups (``ln1``, ``attn``, ``ssm``, ``moe``, ``mlp``, ``ln2``,
+    ``xattn``, ``ln3``) a layer, empty where the config has none;
+    ``enc_final_norm`` and ``frontend_proj`` where the config has an
+    encoder or a frontend (else an empty dict and None).  No parameter
+    requires grad.  Call it on tokens for :func:`forward_logits`."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         self.embed = nn.Parameter(tree["embed"])
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(tree["lm_head"])
         self.final_norm = nn.ParameterDict(tree["final_norm"])
-        self.layers = nn.ModuleList(
-            nn.ModuleDict({g: nn.ParameterDict(d) for g, d in lp.items()})
-            for lp in tree["layers"])
+        for name in STACKS:
+            setattr(self, name, _stack_module(tree.get(name, [])))
+        self.enc_final_norm = nn.ParameterDict(tree.get("enc_final_norm", {}))
+        fp = tree.get("frontend_proj")
+        self.frontend_proj = None if fp is None else nn.Parameter(fp)
         self.requires_grad_(False)
 
     @property
@@ -146,20 +186,18 @@ class Model(nn.Module):
 
 def _model_from_leaves(cfg: ArchConfig, make) -> Model:
     """A :class:`Model` whose leaf at stacked path ``path`` (shape ``sh``)
-    is ``make(path, sh)``, a ``[L, ...]`` tensor for layer leaves."""
-    shapes = param_shapes(cfg)
+    is ``make(path, sh, i)``: layer ``i``'s tensor for a leaf of a stack,
+    one layer at a time, and the whole leaf for ``i`` None."""
     tree: dict = {}
-    layers = [{} for _ in range(cfg.n_layers)]
-    for path, sh in _leaves(shapes):
-        t = make(path, sh)
-        if path[0] == "layers":
-            for i in range(cfg.n_layers):
-                layers[i].setdefault(path[1], {})[path[2]] = t[i].clone()
+    for path, sh in _leaves(param_shapes(cfg)):
+        if path[0] in STACKS:
+            layers = tree.setdefault(path[0], [{} for _ in range(sh[0])])
+            for i, lp in enumerate(layers):
+                lp.setdefault(path[1], {})[path[2]] = make(path, sh, i)
         elif len(path) == 2:
-            tree.setdefault(path[0], {})[path[1]] = t
+            tree.setdefault(path[0], {})[path[1]] = make(path, sh, None)
         else:
-            tree[path[0]] = t
-    tree["layers"] = layers
+            tree[path[0]] = make(path, sh, None)
     return Model(cfg, tree)
 
 
@@ -167,23 +205,26 @@ def _model_from_leaves(cfg: ArchConfig, make) -> Model:
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Model:
     """Random init on ``device`` with the reference's recipe (ones for norm
     scales and D, zeros for biases, log(linspace(1, 16)) for A_log, normal
-    over sqrt(fan in) for weights) drawn from a ``torch.Generator`` seeded
-    with ``seed``: the same recipe, not the reference's numbers."""
+    over sqrt(fan in) of the stacked leaf for weights) drawn from a
+    ``torch.Generator`` seeded with ``seed``: the same recipe, not the
+    reference's numbers.  Each layer of a stack is drawn on its own, so the
+    largest transient is one layer's leaf in float32."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
 
-    def make(path, sh):
+    def make(path, sh, i):
         dt = param_dtype(path)
         name = path[-1]
+        one = sh if i is None else sh[1:]
         if name in ("scale", "norm", "q_norm", "k_norm", "D"):
-            return torch.ones(sh, dtype=dt, device=dev)
+            return torch.ones(one, dtype=dt, device=dev)
         if name in ("bias", "conv_b", "dt_bias"):
-            return torch.zeros(sh, dtype=dt, device=dev)
+            return torch.zeros(one, dtype=dt, device=dev)
         if name == "A_log":
             row = torch.log(torch.linspace(1.0, 16.0, sh[-1], device=dev))
-            return (row * torch.ones(sh, device=dev)).to(dt)
+            return (row * torch.ones(one, device=dev)).to(dt)
         fan_in = sh[-2] if len(sh) >= 2 else sh[-1]
-        w = torch.randn(sh, generator=gen, device=dev) / np.sqrt(fan_in)
+        w = torch.randn(one, generator=gen, device=dev) / np.sqrt(fan_in)
         return w.to(dt)
 
     return _model_from_leaves(cfg, make)
@@ -212,13 +253,14 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
         raise ValueError(f"parameter tree for {cfg.name}: missing "
                          f"{sorted(set(want) - set(have))}, unexpected "
                          f"{sorted(set(have) - set(want))}")
+    for path, sh in want.items():
+        if tuple(np.shape(have[path])) != sh:
+            raise ValueError(f"{'/'.join(path)}: shape "
+                             f"{tuple(np.shape(have[path]))}, expected {sh}")
 
-    def make(path, sh):
-        t = _tensor_from_numpy(have[path])
-        if tuple(t.shape) != sh:
-            raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)}, "
-                             f"expected {sh}")
-        return t.to(dev, dtype or param_dtype(path))
+    def make(path, sh, i):
+        a = have[path] if i is None else np.asarray(have[path])[i]
+        return _tensor_from_numpy(a).to(dev, dtype or param_dtype(path))
 
     return _model_from_leaves(cfg, make)
 
@@ -233,8 +275,16 @@ def params_to_numpy(model: Model) -> dict:
             "final_norm": {k: np_(v) for k, v in model.final_norm.items()}}
     if not model.cfg.tie_embeddings:
         tree["lm_head"] = np_(model.lm_head)
-    tree["layers"] = {g: {k: np.stack([np_(lp[g][k]) for lp in model.layers])
-                          for k in d} for g, d in model.layers[0].items()}
+    for name in STACKS:
+        layers = getattr(model, name)
+        if len(layers):
+            tree[name] = {g: {k: np.stack([np_(lp[g][k]) for lp in layers])
+                              for k in d} for g, d in layers[0].items()}
+    if len(model.enc_final_norm):
+        tree["enc_final_norm"] = {k: np_(v) for k, v in
+                                  model.enc_final_norm.items()}
+    if model.frontend_proj is not None:
+        tree["frontend_proj"] = np_(model.frontend_proj)
     return tree
 
 
@@ -251,15 +301,19 @@ def same_device(a: torch.device, b: torch.device) -> bool:
         (cur if b.index is None else b.index)
 
 
-def _bind(params: Model, device, tokens) -> torch.Tensor:
-    """Resolve ``device``, check the model lies there, and move ``tokens``
-    there as int64."""
+def _bind(params: Model, device) -> torch.device:
+    """Resolve ``device`` and check the model lies there."""
     dev = resolve_device(device)
     if not same_device(params.device, dev):
         raise ValueError(f"the model lies on {params.device}, not on {dev}")
-    if not isinstance(tokens, torch.Tensor):
-        tokens = torch.from_numpy(np.array(tokens))
-    return tokens.to(dev).long()
+    return dev
+
+
+def _put(t, dev: torch.device) -> torch.Tensor:
+    """``t`` (a tensor or an array) on ``dev``."""
+    if not isinstance(t, torch.Tensor):
+        t = _tensor_from_numpy(t)
+    return t.to(dev)
 
 
 def _embed(params: Model, tokens):
@@ -272,21 +326,84 @@ def _unembed(params: Model, cfg: ArchConfig, x):
     return x @ params.lm_head
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
-    return torch.arange(S, device=device).expand(B, S)
+def _project(params: Model, t: torch.Tensor) -> torch.Tensor:
+    """Frontend embeddings through ``frontend_proj``, rounded to bf16
+    first, as the reference does."""
+    w = params.frontend_proj
+    return t.bfloat16().to(w.dtype) @ w
+
+
+def _input(params: Model, cfg: ArchConfig, dev, tokens, embeds):
+    """The first layer's input: ``embeds`` [B, S, d] (through the frontend
+    where the config has one) when given, else the tokens' embeddings."""
+    if embeds is not None:
+        x = _put(embeds, dev)
+        return _project(params, x) if cfg.frontend else x
+    return _embed(params, _put(tokens, dev).long())
+
+
+def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
+    """0..S-1 for each row: [B, S], or [B, S, 3] under M-RoPE."""
+    pos = torch.arange(S, device=device).expand(B, S)
+    return pos[..., None].expand(B, S, 3) if cfg.m_rope else pos
+
+
+def _run_encoder(params: Model, cfg: ArchConfig, frames) -> torch.Tensor:
+    """Whisper's encoder on precomputed frame embeddings [B, S_enc, d]:
+    ``frontend_proj``, the encoder stack (K4 with no mask), its norm."""
+    x = _project(params, frames)
+    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    for lp in params.encoder:
+        x = encoder_block(x, lp, cfg, positions)
+    return norm(x, params.enc_final_norm, cfg.norm_type, cfg.norm_eps)
+
+
+def _run_layers(params: Model, cfg: ArchConfig, x, positions, enc_out,
+                collect: bool):
+    """The leading dense layers, then the decoder layers, over a full
+    sequence.  Returns (x, aux summed over the layers, the dense layers'
+    and the decoder layers' cache elements, a dict a layer, when
+    ``collect``)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    dense_cfg = _dense_view(cfg)
+    dense_els, els = [], []
+    for lp in params.dense_layers:
+        x, a, el = block_forward(x, lp, dense_cfg, positions,
+                                 collect_cache=collect)
+        aux = aux + a
+        dense_els.append(el)
+    for lp in params.layers:
+        if cfg.cross_attention:
+            x, (k, v) = cross_block(x, lp, cfg, positions, enc_out)
+            el = {"k": k, "v": v} if collect else {}
+        else:
+            x, a, el = block_forward(x, lp, cfg, positions,
+                                     collect_cache=collect)
+            aux = aux + a
+        els.append(el)
+    return x, aux, dense_els, els
 
 
 @torch.no_grad()
-def forward_logits(params: Model, cfg: ArchConfig, tokens, device=None):
-    """Full-sequence forward: tokens [B, S] -> (logits [B, S, V], aux)."""
-    tokens = _bind(params, device, tokens)
-    x = _embed(params, tokens)
+def forward_logits(params: Model, cfg: ArchConfig, tokens=None, embeds=None,
+                   positions=None, enc_frames=None, device=None):
+    """Full-sequence forward -> (logits [B, S, V], aux).
+
+    ``embeds`` [B, S, d] (precomputed modality embeddings, through
+    ``frontend_proj`` where the config has a frontend) replaces the token
+    lookup; ``enc_frames`` [B, S_enc, d] feeds the encoder; ``positions``
+    is [B, S], or [B, S, 3] under M-RoPE (0..S-1 on every component when
+    None).  ``aux`` is the MoE layers' load-balance loss, summed.
+    """
+    dev = _bind(params, device)
+    x = _input(params, cfg, dev, tokens, embeds)
     B, S = x.shape[:2]
-    positions = _positions(B, S, x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params.layers:
-        x, a, _ = block_forward(x, lp, cfg, positions)
-        aux = aux + a
+    positions = _positions(cfg, B, S, dev) if positions is None \
+        else _put(positions, dev)
+    enc_out = _run_encoder(params, cfg, _put(enc_frames, dev)) \
+        if cfg.encoder_layers else None
+    x, aux, _, _ = _run_layers(params, cfg, x, positions, enc_out,
+                               collect=False)
     x = norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps)
     return _unembed(params, cfg, x), aux
 
@@ -294,30 +411,55 @@ def forward_logits(params: Model, cfg: ArchConfig, tokens, device=None):
 # ================================================================= decode ====
 def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
     """Shapes of the per-layer decode cache (stacked [L, ...])."""
-    _check_ported(cfg)
     kind = cfg.block_kind
     per: dict = {}
-    if kind in ("attn", "hybrid"):
+    if kind in ("attn", "moe", "hybrid"):
         per["k"] = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         per["v"] = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.kv_quant:
+            per["k_scale"] = (batch, max_seq, cfg.n_kv_heads)
+            per["v_scale"] = (batch, max_seq, cfg.n_kv_heads)
     if kind in ("ssm", "hybrid"):
         per.update(ssm_decode_state_shapes(cfg, batch))
-    return {"layers": {k: (cfg.n_layers,) + v for k, v in per.items()}}
+    if cfg.cross_attention:
+        per["enc_out"] = (batch, cfg.encoder_seq, cfg.d_model)
+    n_scanned = cfg.n_layers - cfg.first_dense_layers
+    shapes = {"layers": {k: (n_scanned,) + v for k, v in per.items()}}
+    if cfg.first_dense_layers:
+        kv = (cfg.first_dense_layers, batch, max_seq, cfg.n_kv_heads,
+              cfg.head_dim)
+        shapes["dense_layers"] = {"k": kv, "v": kv}
+    return shapes
 
 
-def cache_dtype(name: str) -> torch.dtype:
-    """bf16 k/v, float32 conv and ssd states."""
-    return torch.float32 if name in ("conv", "ssd") else torch.bfloat16
+def cache_dtype(name: str, cfg: ArchConfig | None = None) -> torch.dtype:
+    """float32 conv and ssd states and scales; k/v int8 under
+    ``cfg.kv_quant``, else bf16 like every other entry."""
+    if name in ("conv", "ssd") or name.endswith("_scale"):
+        return torch.float32
+    if cfg is not None and cfg.kv_quant and name in ("k", "v"):
+        return torch.int8
+    return torch.bfloat16
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                device=None) -> dict:
     """A zero decode cache on ``device``."""
     dev = resolve_device(device)
-    return {"layers": {k: torch.zeros(sh, dtype=cache_dtype(k),
-                                      device=dev)
-                       for k, sh in cache_shapes(cfg, batch,
-                                                 max_seq)["layers"].items()}}
+    return {group: {k: torch.zeros(sh, dtype=cache_dtype(k, cfg), device=dev)
+                    for k, sh in shapes.items()}
+            for group, shapes in cache_shapes(cfg, batch, max_seq).items()}
+
+
+def _decode_stack(x, layers, cfg: ArchConfig, stacked: dict, pos: int):
+    """One token through a stack of layers and its cache group."""
+    for i, lp in enumerate(layers):
+        cl = {k: t[i] for k, t in stacked.items()}
+        x, ncl = block_decode(x, lp, cfg, cl, pos)
+        for k in ("conv", "ssd"):
+            if k in ncl:
+                stacked[k][i] = ncl[k]
+    return x
 
 
 @torch.no_grad()
@@ -325,55 +467,81 @@ def decode_step(params: Model, cfg: ArchConfig, cache: dict, token, pos: int,
                 device=None):
     """One-token decode.  token: [B] ints; pos: the position of the token.
 
-    Returns (logits [B, V], cache): the cache is updated in place (k/v at
-    ``pos``, the conv and ssd states replaced) and returned.
+    Returns (logits [B, V], cache): the cache is updated in place (k/v and
+    their scales at ``pos``, the conv and ssd states replaced; ``enc_out``
+    unchanged) and returned.  The leading dense layers run first.
     """
-    token = _bind(params, device, token)
+    dev = _bind(params, device)
+    x = _embed(params, _put(token, dev).long()[:, None])
     pos = int(pos)
-    x = _embed(params, token[:, None])
-    stacked = cache["layers"]
-    for i, lp in enumerate(params.layers):
-        cl = {k: t[i] for k, t in stacked.items()}
-        x, ncl = block_decode(x, lp, cfg, cl, pos)
-        for k in ("conv", "ssd"):
-            if k in ncl:
-                stacked[k][i] = ncl[k]
+    if cfg.first_dense_layers:
+        x = _decode_stack(x, params.dense_layers, _dense_view(cfg),
+                          cache["dense_layers"], pos)
+    x = _decode_stack(x, params.layers, cfg, cache["layers"], pos)
     x = norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps)
     return _unembed(params, cfg, x)[:, 0], cache
 
 
+def _cache_of(els: list, cfg: ArchConfig, B: int, S: int,
+              max_seq: int) -> dict:
+    """A stack's decode cache from its layers' prefill elements: k/v in a
+    cache of ``max_seq`` positions, zero past the prompt (the reference's
+    padding); under ``cfg.kv_quant`` int8 with float32 scales, quantised
+    as decode quantises."""
+    out: dict = {}
+
+    def put(name, i, t, seq: bool):
+        if name not in out:
+            shape = (len(els), B, max_seq) + t.shape[2:] if seq \
+                else (len(els),) + t.shape
+            out[name] = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        if seq:
+            out[name][i, :, :S] = t
+        else:
+            out[name][i] = t
+
+    for i, el in enumerate(els):
+        for name, t in el.items():
+            if name in ("k", "v") and cfg.kv_quant:
+                q, s = quantize_kv(t)
+                put(name, i, q, True)
+                put(f"{name}_scale", i, s, True)
+            else:
+                put(name, i, t, name in ("k", "v"))
+    return out
+
+
 @torch.no_grad()
-def prefill(params: Model, cfg: ArchConfig, tokens, max_seq: int | None = None,
-            device=None):
+def prefill(params: Model, cfg: ArchConfig, tokens=None, embeds=None,
+            enc_frames=None, max_seq: int | None = None, device=None):
     """Run the prompt, build the decode cache.  Returns (last_logits [B, V],
     cache).
 
-    Attention archs emit K/V (written into a cache of ``max_seq``
-    positions, zero past the prompt: the reference's padding); SSM and
-    hybrid archs also emit the final conv and SSD states of the chunked
-    scan.
+    ``embeds`` (qwen2-vl's patch embeddings, through ``frontend_proj``)
+    replaces the tokens when given; ``enc_frames`` feeds whisper's encoder,
+    whose output the cache keeps for every layer.  Attention archs emit
+    K/V (written into a cache of ``max_seq`` positions, zero past the
+    prompt: the reference's padding), the leading dense layers' too; SSM
+    and hybrid archs also emit the final conv and SSD states of the
+    chunked scan.
     """
-    tokens = _bind(params, device, tokens)
-    x = _embed(params, tokens)
+    dev = _bind(params, device)
+    x = _input(params, cfg, dev, tokens, embeds)
     B, S = x.shape[:2]
     max_seq = max_seq or S
     if max_seq < S:
         raise ValueError(f"max_seq {max_seq} is shorter than the prompt {S}")
-    positions = _positions(B, S, x.device)
-    layers: dict = {}
-    L = len(params.layers)
-    for i, lp in enumerate(params.layers):
-        x, _, el = block_forward(x, lp, cfg, positions, collect_cache=True)
-        for k, t in el.items():
-            if k not in layers:
-                shape = (L, B, max_seq) + t.shape[2:] if k in ("k", "v") \
-                    else (L,) + t.shape
-                layers[k] = torch.zeros(shape, dtype=t.dtype,
-                                        device=t.device)
-            if k in ("k", "v"):
-                layers[k][i, :, :S] = t
-            else:
-                layers[k][i] = t
+    positions = _positions(cfg, B, S, dev)
+    enc_out = _run_encoder(params, cfg, _put(enc_frames, dev)) \
+        if cfg.encoder_layers else None
+    x, _, dense_els, els = _run_layers(params, cfg, x, positions, enc_out,
+                                       collect=True)
     x = norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps)
     logits = _unembed(params, cfg, x[:, -1:])[:, 0]
-    return logits, {"layers": layers}
+    cache = {"layers": _cache_of(els, cfg, B, S, max_seq)}
+    if cfg.cross_attention:
+        cache["layers"]["enc_out"] = enc_out.expand(
+            (len(els),) + enc_out.shape).contiguous()
+    if cfg.first_dense_layers:
+        cache["dense_layers"] = _cache_of(dense_els, cfg, B, S, max_seq)
+    return logits, cache

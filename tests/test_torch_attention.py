@@ -255,17 +255,60 @@ def test_decode_attention_matches_repro(cache_dtype):
                                atol=LAYER_TOL)
 
 
-def test_unported_attention_features_raise():
+@pytest.mark.parametrize("change", [{"kv_quant": True}, {"m_rope": True},
+                                    {"kv_quant": True, "m_rope": True}])
+def test_decode_attention_on_the_int8_cache_and_m_rope_matches_repro(change):
     import dataclasses
-    cfg = get_smoke_config("llama3.2-3b")
-    p = {n: _t(a) for n, a in _attn_params(cfg, 0).items()}
-    x = torch.zeros(1, 4, cfg.d_model)
-    pos = torch.arange(4)[None]
-    for change in ({"kv_quant": True}, {"m_rope": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attn.attention(x, p, dataclasses.replace(cfg, **change), pos)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attn.cross_attention(x, p, cfg, x)
+    cfg = dataclasses.replace(get_smoke_config("qwen2-vl-72b"), **change)
+    rcfg = dataclasses.replace(ref_smoke("qwen2-vl-72b"), **change)
+    p = _attn_params(cfg, 5)
+    jp = {n: jnp.asarray(a) for n, a in p.items()}
+    rng = np.random.default_rng(5)
+    B, S_max, pos = 2, 20, 7
+    KH, D = cfg.n_kv_heads, cfg.head_dim
+    x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    kv = rng.standard_normal((2, B, S_max, KH, D)).astype(np.float32)
+    if cfg.kv_quant:
+        scales = (np.abs(kv).max(-1) / 127).astype(np.float32)
+        kv = np.clip(np.round(kv / scales[..., None]), -127, 127)
+        jc = [jnp.asarray(a, jnp.int8) for a in kv] \
+            + [jnp.asarray(a) for a in scales]
+        tc = [torch.from_numpy(a.astype(np.int8)) for a in kv] \
+            + [torch.from_numpy(a) for a in scales]
+    else:
+        jc = [jnp.asarray(a) for a in kv]
+        tc = [_t(a) for a in kv]
+    want = ref_attn.decode_attention(jnp.asarray(x), jp, rcfg, *jc[:2], pos,
+                                     *jc[2:])
+    got = attn.decode_attention(_t(x), {n: _t(a) for n, a in p.items()}, cfg,
+                                *tc[:2], pos, *tc[2:])
+    assert len(got) == len(want) == 3 + 2 * cfg.kv_quant
+    assert all(g is t for g, t in zip(got[1:], tc))    # written in place
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=LAYER_TOL, atol=LAYER_TOL)
+    for g, w in zip(got[1:], want[1:]):
+        if g.dtype == torch.int8:
+            diff = g.numpy().astype(int) - np.asarray(w).astype(int)
+            assert np.abs(diff).max() <= 1
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       rtol=LAYER_TOL, atol=1e-6)
+
+
+def test_m_rope_attention_matches_repro():
+    cfg, rcfg = get_smoke_config("qwen2-vl-72b"), ref_smoke("qwen2-vl-72b")
+    p = _attn_params(cfg, 6)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 20, cfg.d_model)).astype(np.float32)
+    pos = rng.integers(0, 30, (2, 20, 3))
+    want, (wk, wv) = ref_attn.attention(
+        jnp.asarray(x), {n: jnp.asarray(a) for n, a in p.items()}, rcfg,
+        jnp.asarray(pos))
+    got, (gk, gv) = attn.attention(_t(x), {n: _t(a) for n, a in p.items()},
+                                   cfg, torch.from_numpy(pos))
+    for g, w in ((got, want), (gk, wk), (gv, wv)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=LAYER_TOL,
+                                   atol=LAYER_TOL)
 
 
 # -- the CUDA kernel -----------------------------------------------------------

@@ -3,12 +3,18 @@ the parameter tree, prefill, greedy decode and the serving engine.
 
 The reference's parameters (``repro.nn.init_params``) are carried into the
 port with ``params_from_numpy``, so both run on the same weights.  Smoke
-configs of the ported families (hymba: hybrid, mamba2: ssm, llama3.2 and
+configs of every family (hymba: hybrid, mamba2: ssm, llama3.2 and
 tinyllama: dense attention, starcoder2: gelu MLP and layernorm, qwen3-32b:
-qk-norm): in float32 the prefill logits and cache and 8 decode steps
-agree at rtol/atol 1e-4 and pick the same greedy tokens; in bfloat16 they
-agree at rtol/atol 0.1, the bound the reference holds its own prefill to
-its full forward (``tests/test_nn_models.py``).
+qk-norm, deepseek-moe-16b: MoE with a leading dense layer and shared
+experts, qwen3-moe-30b-a3b: MoE with qk-norm, whisper-small: encoder and
+cross-attention on frame embeddings, qwen2-vl-72b: patch embeddings through
+the frontend with M-RoPE): in float32 the prefill logits and cache and 8
+decode steps agree at rtol/atol 1e-4 and pick the same greedy tokens; in
+bfloat16 they agree at rtol/atol 0.1, the bound the reference holds its own
+prefill to its full forward (``tests/test_nn_models.py``).  The
+reference's prefill leaves deepseek's leading dense layer out of the cache
+(ROADMAP §3), so its cache is completed by its own functions
+(:func:`complete_dense_cache`) before it decodes.
 """
 import dataclasses
 
@@ -27,18 +33,15 @@ from repro.serve import ServeEngine as RefEngine  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.steps import (make_prefill_step,  # noqa: E402
                                       make_serve_step)
-from repro_torch.nn import (Model, cache_shapes, decode_step,  # noqa: E402
+from repro_torch.nn import (cache_shapes, decode_step,  # noqa: E402
                             forward_logits, init_cache, init_params,
                             param_shapes, params_from_numpy,
                             params_to_numpy, prefill)
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
 ARCHS = ["hymba-1.5b", "mamba2-130m", "llama3.2-3b", "tinyllama-1.1b",
-         "starcoder2-3b", "qwen3-32b"]
-#: Arch ids whose configs are ported but whose blocks wait for ROADMAP queue
-#: item 5 (MoE, the VLM frontend, the audio encoder).
-UNPORTED_BLOCKS = ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "qwen2-vl-72b",
-                   "whisper-small"]
+         "starcoder2-3b", "qwen3-32b", "deepseek-moe-16b",
+         "qwen3-moe-30b-a3b", "whisper-small", "qwen2-vl-72b"]
 F32_TOL = 1e-4
 BF16_TOL = 0.1
 N_DECODE = 8
@@ -58,6 +61,55 @@ def _np(a):
 def _close(got, want, tol, what):
     np.testing.assert_allclose(got.float().cpu().numpy(), _np(want),
                                rtol=tol, atol=tol, err_msg=what)
+
+
+def model_inputs(cfg, B, S, seed):
+    """The prompt of a family as numpy arrays, keyed as the port's
+    ``prefill`` takes them: tokens, or patch embeddings [B, S, d] for a
+    frontend with M-RoPE (qwen2-vl); frame embeddings [B, encoder_seq, d]
+    for an encoder (whisper)."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "patch_embed":
+        out = {"embeds": rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)}
+    else:
+        out = {"tokens": rng.integers(0, cfg.vocab_size, (B, S))}
+    if cfg.encoder_layers:
+        out["enc_frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def ref_inputs(inputs):
+    return {k: jnp.asarray(v) for k, v in inputs.items()}
+
+
+def complete_dense_cache(ref_p, rcfg, tokens, r_cache, max_seq):
+    """The reference's prefill cache with the leading dense layers' k/v it
+    leaves out, made by its own ``block_forward(..., collect_cache=True)``
+    on ``_dense_view`` and padded to ``max_seq`` as its prefill pads."""
+    from repro.nn.blocks import block_forward
+    from repro.nn.model import _dense_view, _embed, _index_layer
+
+    tokens = jnp.asarray(tokens)
+    B, S = tokens.shape
+    x = _embed(ref_p, rcfg, tokens)
+    positions = jnp.broadcast_to(jnp.arange(S), (B, S))
+    kv = {"k": [], "v": []}
+    for i in range(rcfg.first_dense_layers):
+        x, _, el = block_forward(x, _index_layer(ref_p["dense_layers"], i),
+                                 _dense_view(rcfg), positions,
+                                 collect_cache=True)
+        for name in kv:
+            kv[name].append(el[name])
+    pad = ((0, 0), (0, 0), (0, max_seq - S), (0, 0), (0, 0))
+    return dict(r_cache, dense_layers={
+        name: jnp.pad(jnp.stack(ts), pad) for name, ts in kv.items()})
+
+
+def snap(cache):
+    """A copy of a port cache (decode writes it in place)."""
+    return {g: {k: t.clone() for k, t in d.items()} for g, d in cache.items()}
 
 
 # -- configs -------------------------------------------------------------------
@@ -85,7 +137,7 @@ def test_hymba_full_width_parameter_count():
 
 def test_registry_ids_and_shapes_equal_repro():
     assert configs.ARCH_IDS == ref_configs.ARCH_IDS
-    assert set(ARCHS) | set(UNPORTED_BLOCKS) == set(configs.ARCH_IDS)
+    assert set(ARCHS) == set(configs.ARCH_IDS)
     assert {k: dataclasses.asdict(v) for k, v in configs.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in ref_configs.SHAPES.items()}
     for arch in configs.ARCH_IDS:
@@ -96,17 +148,6 @@ def test_registry_ids_and_shapes_equal_repro():
     cells = configs.all_cells(configs.all_configs())
     assert len(cells) == 40
     assert cells == ref_configs.all_cells(ref_configs.all_configs())
-
-
-@pytest.mark.parametrize("arch", UNPORTED_BLOCKS)
-@pytest.mark.parametrize("smoke", [False, True])
-def test_unported_blocks_build_their_config_and_raise_at_model(arch, smoke):
-    cfg = (configs.get_smoke_config if smoke else configs.get_config)(arch)
-    assert cfg.name == arch
-    for call in (lambda: Model(cfg, {}), lambda: param_shapes(cfg),
-                 lambda: init_params(cfg, device="cpu")):
-        with pytest.raises(NotImplementedError, match="queue item 5"):
-            call()
 
 
 def test_unknown_arch_raises_key_error():
@@ -156,11 +197,14 @@ def test_param_and_cache_shapes_equal_repro(arch):
     assert cache_shapes(cfg, 3, 40) == ref_nn.cache_shapes(rcfg, 3, 40)
     ref_cache = ref_nn.init_cache(rcfg, 3, 40)
     cache = init_cache(cfg, 3, 40, device="cpu")
-    for name, t in cache["layers"].items():
-        want = ref_cache["layers"][name]
-        assert tuple(t.shape) == want.shape
-        assert str(t.dtype).split(".")[-1] == str(want.dtype)
-        assert not t.any()
+    assert set(cache) == set(ref_cache)
+    for group, leaves in cache.items():
+        assert set(leaves) == set(ref_cache[group])
+        for name, t in leaves.items():
+            want = ref_cache[group][name]
+            assert tuple(t.shape) == want.shape
+            assert str(t.dtype).split(".")[-1] == str(want.dtype)
+            assert not t.any()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -226,13 +270,17 @@ def _run_both(arch, f32: bool, B=2, S=32, max_seq=48):
     model = params_from_numpy(jax.tree.map(np.asarray, ref_p), cfg,
                               device="cpu",
                               dtype=torch.float32 if f32 else None)
-    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S))
-    r_logits, r_cache = ref_nn.prefill(ref_p, rcfg, tokens=jnp.asarray(tokens),
-                                       max_seq=max_seq)
+    inputs = model_inputs(cfg, B, S, seed=1)
+    r_logits, r_cache = ref_nn.prefill(ref_p, rcfg, max_seq=max_seq,
+                                       **ref_inputs(inputs))
+    if rcfg.first_dense_layers:
+        r_cache = complete_dense_cache(ref_p, rcfg, inputs["tokens"],
+                                       r_cache, max_seq)
     prefill_step = make_prefill_step(cfg, max_seq=max_seq, device="cpu")
-    logits, cache = prefill_step(model, {"tokens": tokens})
+    batch = {"frames" if k == "enc_frames" else k: v
+             for k, v in inputs.items()}
+    logits, cache = prefill_step(model, batch)
     # the port's decode updates the cache in place: keep copies to compare
-    snap = lambda c: {"layers": {k: t.clone() for k, t in c["layers"].items()}}
     out = [("prefill", logits, r_logits, snap(cache), r_cache)]
     serve_step = make_serve_step(cfg, device="cpu")
     r_tok = jnp.argmax(r_logits, -1).astype(jnp.int32)
@@ -255,13 +303,93 @@ def test_prefill_and_greedy_decode_match_repro_f32(arch):
         _close(logits, r_logits, F32_TOL, f"{arch} {what} logits")
         if what == "prefill" or what == f"decode {N_DECODE - 1}":
             cache, r_cache = step[3:5]
-            assert set(cache["layers"]) == set(r_cache["layers"])
-            for name, t in cache["layers"].items():
-                _close(t, r_cache["layers"][name], F32_TOL,
-                       f"{arch} {what} cache {name}")
+            assert set(cache) == set(r_cache)
+            for group, leaves in cache.items():
+                assert set(leaves) == set(r_cache[group])
+                for name, t in leaves.items():
+                    _close(t, r_cache[group][name], F32_TOL,
+                           f"{arch} {what} cache {group}/{name}")
         if len(step) > 5:
             np.testing.assert_array_equal(step[6], step[5],
                                           err_msg=f"{arch} {what} tokens")
+
+
+def _t(a):
+    """A reference array (bf16 too) as a torch tensor with its dtype."""
+    from repro_torch.nn.model import _tensor_from_numpy
+    return _tensor_from_numpy(np.asarray(a))
+
+
+def _blockwise_bf16(cfg, rcfg, ref_p, model, tokens, r_cache, max_seq):
+    """The MoE configs in bf16, held block by block: every block (the
+    leading dense layers, then the MoE layers) of the prefill and of
+    N_DECODE decode steps runs the reference's own input and cache, its
+    output (and its k/v, its aux loss) held to the reference block's.  Run
+    end to end, bf16 rounding upstream (the reference's jnp attention
+    rounds its scores to bf16, K4's plain version keeps them in float32)
+    moves router probabilities that lie 0.002 apart across the top-k
+    boundary, and a token takes other experts; on one input the routing is
+    equal, or the block's output is off by far more than BF16_TOL."""
+    from repro.nn import blocks as rb
+    from repro.nn.layers import norm as r_norm
+    from repro.nn.model import _dense_view as r_dense_view
+    from repro.nn.model import _index_layer, _unembed
+    from repro_torch.nn import blocks as pb
+    from repro_torch.nn.layers import norm
+    from repro_torch.nn.model import _dense_view
+
+    stacks = [("layers", rcfg, cfg)]
+    if cfg.first_dense_layers:
+        stacks.insert(0, ("dense_layers", r_dense_view(rcfg),
+                          _dense_view(cfg)))
+
+    def logits_of(x, what):
+        want = _unembed(ref_p, rcfg, r_norm(x, ref_p["final_norm"],
+                                            rcfg.norm_type, rcfg.norm_eps))
+        got = model.embed.T if cfg.tie_embeddings else model.lm_head
+        got = norm(_t(x), model.final_norm, cfg.norm_type, cfg.norm_eps) \
+            @ got
+        _close(got, want, BF16_TOL, f"{cfg.name} {what} logits")
+        return want[:, -1]
+
+    B, S = tokens.shape
+    x = jnp.take(ref_p["embed"], jnp.asarray(tokens), axis=0)
+    positions = jnp.broadcast_to(jnp.arange(S), (B, S))
+    for name, rc, pc in stacks:
+        for i, lp in enumerate(getattr(model, name)):
+            want, r_aux, r_el = rb.block_forward(
+                x, _index_layer(ref_p[name], i), rc, positions,
+                collect_cache=True)
+            got, aux, el = pb.block_forward(_t(x), lp, pc, _t(positions),
+                                            collect_cache=True)
+            what = f"{cfg.name} prefill {name} {i}"
+            _close(got, want, BF16_TOL, what)
+            np.testing.assert_allclose(float(aux), float(r_aux),
+                                       rtol=BF16_TOL, atol=BF16_TOL,
+                                       err_msg=what)
+            for k in ("k", "v"):
+                _close(el[k], r_el[k], BF16_TOL, f"{what} {k}")
+            x = want
+    r_logits = logits_of(x, "prefill")
+    layer_caches = {name: [jax.tree.map(lambda a: a[i], r_cache[name])
+                           for i in range(len(getattr(model, name)))]
+                    for name, _, _ in stacks}
+    for step in range(N_DECODE):
+        pos = S + step
+        tok = jnp.argmax(r_logits, -1).astype(jnp.int32)
+        x = jnp.take(ref_p["embed"], tok[:, None], axis=0)
+        for name, rc, pc in stacks:
+            for i, lp in enumerate(getattr(model, name)):
+                cl = layer_caches[name][i]
+                want, layer_caches[name][i] = rb.block_decode(
+                    x, _index_layer(ref_p[name], i), rc, cl, pos)
+                got, _ = pb.block_decode(_t(x), lp, pc,
+                                         {k: _t(v) for k, v in cl.items()},
+                                         pos)
+                _close(got, want, BF16_TOL,
+                       f"{cfg.name} decode {step} {name} {i}")
+                x = want
+        r_logits = logits_of(x, f"decode {step}")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -273,16 +401,25 @@ def test_prefill_and_decode_match_repro_bf16(arch):
     ref_p = _ref_params(arch, f32=False)
     model = params_from_numpy(jax.tree.map(np.asarray, ref_p), cfg,
                               device="cpu")
-    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 32))
-    r_logits, r_cache = ref_nn.prefill(ref_p, rcfg, tokens=jnp.asarray(tokens),
-                                       max_seq=48)
-    logits, cache = prefill(model, cfg, tokens, max_seq=48, device="cpu")
+    inputs = model_inputs(cfg, 2, 32, seed=2)
+    r_logits, r_cache = ref_nn.prefill(ref_p, rcfg, max_seq=48,
+                                       **ref_inputs(inputs))
+    if rcfg.first_dense_layers:
+        r_cache = complete_dense_cache(ref_p, rcfg, inputs["tokens"],
+                                       r_cache, 48)
+    if cfg.is_moe:
+        _blockwise_bf16(cfg, rcfg, ref_p, model, inputs["tokens"], r_cache,
+                        48)
+        return
+    logits, cache = prefill(model, cfg, max_seq=48, device="cpu", **inputs)
     assert logits.dtype == torch.bfloat16
     _close(logits, r_logits, BF16_TOL, f"{arch} prefill logits")
-    for name, t in cache["layers"].items():
-        assert str(t.dtype).split(".")[-1] == \
-            str(r_cache["layers"][name].dtype)
-        _close(t, r_cache["layers"][name], BF16_TOL, f"{arch} cache {name}")
+    assert set(cache) == set(r_cache)
+    for group, leaves in cache.items():
+        for name, t in leaves.items():
+            want = r_cache[group][name]
+            assert str(t.dtype).split(".")[-1] == str(want.dtype)
+            _close(t, want, BF16_TOL, f"{arch} cache {group}/{name}")
     for i in range(N_DECODE):
         r_tok = jnp.argmax(r_logits, -1).astype(jnp.int32)
         r_logits, r_cache = ref_nn.decode_step(ref_p, rcfg, r_cache, r_tok,
@@ -296,15 +433,22 @@ def test_prefill_and_decode_match_repro_bf16(arch):
 def test_forward_logits_last_position_equals_prefill(arch):
     cfg = configs.get_smoke_config(arch)
     model = init_params(cfg, seed=1, device="cpu").float()
-    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32))
-    full, aux = forward_logits(model, cfg, tokens, device="cpu")
-    last, cache = prefill(model, cfg, tokens, max_seq=40, device="cpu")
-    assert full.shape == (2, 32, cfg.vocab_size) and float(aux) == 0.0
+    inputs = model_inputs(cfg, 2, 32, seed=3)
+    full, aux = forward_logits(model, cfg, device="cpu", **inputs)
+    last, cache = prefill(model, cfg, max_seq=40, device="cpu", **inputs)
+    assert full.shape == (2, 32, cfg.vocab_size)
+    # the MoE layers' load-balance loss: at least 1 a layer (E sum f P is
+    # smallest for uniform routing), 0 without experts
+    n_moe = cfg.n_layers - cfg.first_dense_layers if cfg.is_moe else 0
+    assert float(aux) >= n_moe * (1 - 1e-5) and (n_moe or float(aux) == 0.0)
     torch.testing.assert_close(full[:, -1], last)
-    torch.testing.assert_close(model(tokens, device="cpu"), full)
-    for name in ("k", "v"):           # zero past the prompt: the padding
-        if name in cache["layers"]:
-            assert not cache["layers"][name][:, :, 32:].any()
+    if set(inputs) == {"tokens"}:
+        torch.testing.assert_close(model(inputs["tokens"], device="cpu"),
+                                   full)
+    for group in cache.values():      # zero past the prompt: the padding
+        for name in ("k", "v"):
+            if name in group:
+                assert not group[name][:, :, 32:].any()
 
 
 def test_prefill_rejects_a_short_cache_and_a_model_elsewhere():
@@ -315,20 +459,6 @@ def test_prefill_rejects_a_short_cache_and_a_model_elsewhere():
         prefill(model, cfg, tokens, max_seq=4, device="cpu")
     with pytest.raises(ValueError, match="lies on"):
         prefill(model.to("meta"), cfg, tokens, device="cpu")
-
-
-@pytest.mark.parametrize("change", [{"n_experts": 4, "n_experts_active": 2},
-                                    {"encoder_layers": 2,
-                                     "cross_attention": True},
-                                    {"kv_quant": True},
-                                    {"first_dense_layers": 1}])
-def test_unported_model_features_raise(change):
-    cfg = dataclasses.replace(configs.get_smoke_config("llama3.2-3b"),
-                              **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, device="cpu")
 
 
 # -- the serving engine against repro.serve -------------------------------------
