@@ -114,7 +114,29 @@ Phases, in order (any failure raises and the script exits non-zero):
    messages) x the three strategies: plan, executor build and median run
    timed, buffers and peak memory, the delivered matrix held to the
    semantic oracle on the card and the digest to the bincount;
-11. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
+11. the post-kernel check (``REPRO_STACK_VERIFY``): phase 4's full-width
+   sweep again unchecked, then under ``finite`` and ``parity``, with K1's
+   and K2's counts set to 0 just before each and every K1/K2 input
+   captured and held to its plain version — winners equal, K2's inputs and
+   steps bit-equal to the unchecked run's, the three walls and parity's
+   plain K2 on the CPU timed; the chaos drill on phase 9's service
+   (``*:nan`` with ``finite``, ``*:corrupt`` with ``parity``): every level
+   an error or shed, the breaker open, no cache holding a rejected output,
+   phase 9's verdicts again after the disarm; a K1 output poisoned with
+   ``nan`` comes back all NaN with the check off and raises with it on;
+12. collective pricing: one training step's collectives of
+   qwen3-moe-30b-a3b on the reference's 2 x 16 x 16 production mesh (512
+   chips) as post-SPMD HLO text (``collective_step_hlo``: FSDP all-gather,
+   gradient reduce-scatter, tensor-parallel all-reduce and the expert
+   all-to-alls inside a 48-trip ``while``; the gradient all-reduce over
+   ``pod``, a 512-chip all-to-all and a ``collective-permute`` ring
+   outside), parsed, decomposed and priced by ``price_step`` on cuda with
+   K1's count set to 0 just before and every K1 input captured and held to
+   its plain version, and on cpu — every ``CollectiveCost`` field and the
+   step totals within 1e-4; the parse, decompose and pricing walls, the
+   device-busy share, and per op kind the model time against the naive
+   ``bytes / link_bw`` time;
+13. the model, small: hymba-1.5b's smoke config and hymba-1.5b at full
    width cut to 2 layers, the smoke configs of tinyllama-1.1b,
    starcoder2-3b (gelu, layernorm), qwen3-32b (qk-norm), deepseek-moe-16b
    and qwen3-moe-30b-a3b (MoE), whisper-small (encoder and cross-attention
@@ -124,7 +146,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    prompt, ``prefill`` (one K4 launch a self-attention) then 8 greedy
    ``decode_step`` calls on cuda and on cpu — logits within 1e-4 relative
    L2, the same tokens;
-12. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
+14. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
    random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
    tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
    and K5's counts set to 0 just before (32 launches each, one a layer, all
@@ -133,8 +155,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``make_serve_step`` decode steps; prefill and decode times, peak device
    memory and the device busy share of a profiled prefill; then
    ``ServeEngine`` at full width (4 slots, 6 seeded requests of 2-7 prompt
-   tokens, 8 new tokens each); the model is freed before phase 13;
-13. the rest of ``nn/``, each model freed before the next, each prefill
+   tokens, 8 new tokens each); the model is freed before phase 15;
+15. the rest of ``nn/``, each model freed before the next, each prefill
    run with K4's count set to 0 just before and every K4 input captured,
    held to its plain version and timed beside SDPA: deepseek-moe-16b as
    published (28 layers, 64 experts top-6 and 2 shared, bf16 random
@@ -152,10 +174,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    decode steps; llama3.2-3b with the int8 KV cache on 4 x 2048 tokens and
    32 decode steps beside the bf16 cache's (half the k/v bytes, logits
    within the reference's 0.08);
-14. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
-   (K1's and K2's rows add ``registry``, ``delta``, ``service`` and
-   ``exec``: their launches on phase 7's sweep, on phase 8, on phase 9's
-   cold query and reprice and on phase 10, with their calls' times and
+16. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
+   (K1's and K2's rows add ``registry``, ``delta``, ``service``, ``exec``
+   and ``verify``: their launches on phase 7's sweep, on phase 8, on phase
+   9's cold query and reprice, on phase 10 and on phase 11's two checked
+   sweeps, and K1's ``collectives``, on phase 12, with their calls' times and
    bound summed as below), worst error
    against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
@@ -165,9 +188,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    and its bound over every padded slot (``bound_padded_ms``); K4's row adds
    its ``path`` ("wgmma"), its TFLOP/s launch alone, ``vs_library``
    (launch alone over SDPA) and ``rest_of_nn`` (its launches and summed
-   figures on each model of phase 13), K5's its ``path`` ("mma.sync
+   figures on each model of phase 15), K5's its ``path`` ("mma.sync
    3xTF32"), and both their ``tc_launches``;
-15. the card's name and power limit as ``nvidia-smi`` reports them, then,
+17. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -2269,7 +2292,318 @@ def execution_layer(ks, pats, clock_hz, card=None) -> dict:
     return kernel_sums(ks, "exec", launches, captured, clock_hz, prof)
 
 
-# -- phase 14: kernel figures ------------------------------------------------
+# -- phase 11: the post-kernel check --------------------------------------------
+
+@contextlib.contextmanager
+def chaos_env(plan: str = "", verify: str = ""):
+    """``REPRO_FAULT_INJECT`` and ``REPRO_STACK_VERIFY`` set for the block
+    (empty: unset), restored after it."""
+    import os
+
+    from repro_torch.comm import faults
+
+    names = (faults.ENV_VAR, "REPRO_STACK_VERIFY")
+    saved = {k: os.environ.pop(k, None) for k in names}
+    for k, v in zip(names, (plan, verify)):
+        if v:
+            os.environ[k] = v
+    faults._env_cache.clear()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+        faults._env_cache.clear()
+
+
+def post_kernel_check(ks, pats, want, clock_hz, card=None) -> dict:
+    """ROADMAP item 12 on the card (``card``, ``None`` = CUDA):
+
+    (a) phase 4's full-width sweep (``pats`` on ``blue_waters_machine((8,
+        8, 4))``) again unchecked, then under ``REPRO_STACK_VERIFY=finite``
+        and ``=parity``, each with K1's and K2's counts set to 0 just before
+        and every K1/K2 input and K2 output captured: the winners those of
+        phase 4 (``want``), the totals within rtol 1e-4, K2's inputs and
+        steps bit-equal to the unchecked run's; the three walls, the verify
+        overhead and parity's plain K2 on the CPU timed alone;
+    (b) the chaos drill on phase 9's service (the six levels, a fresh
+        service, breaker threshold 2): ``*:nan`` with ``finite``, then
+        ``*:corrupt`` with ``parity``, one query a level: every result an
+        error (``BackendVerifyError``) or shed (``BackendUnavailable``),
+        the breaker open, nothing in the verdict cache or the arena cache;
+        disarmed, after the breaker's hold, the service answers ``want``;
+    (c) one K1 call of the sweep poisoned with ``nan``: with the check off
+        the NaNs come back, with ``finite`` it raises.
+    Returns, per kernel, its launches on (a)'s two checked runs and their
+    calls' summed times and bound."""
+    from repro_torch.comm import faults, strategies
+    from repro_torch.comm.health import BackendUnavailable, reset_health
+    from repro_torch.kernels.comm_stack import BackendVerifyError
+    from repro_torch.net.machine import blue_waters_machine
+    from repro_torch.serve import StrategyService
+
+    m = blue_waters_machine(FULL["torus"])
+    launches = {"segment_reduce": 0, "queue_walk": 0}
+    captured = {"segment_reduce": [], "queue_walk": []}
+    runs = {}
+    real_walk = ks.queue_walk
+    for verify in ("", "finite", "parity"):
+        steps = []
+
+        def walk(*a):
+            out = real_walk(*a)
+            steps.append(out)
+            return out
+
+        ks.queue_walk = walk
+        try:
+            with chaos_env(verify=verify):
+                got, wall, n, cap, _ = counted_kernels(
+                    ks, lambda: strategies.best_strategy_many(pats, m,
+                                                              device=card))
+        finally:
+            ks.queue_walk = real_walk
+        for lvl, (g, w) in enumerate(zip(got, want)):
+            _same_verdict(g, w, f"verify {verify or 'off'} level {lvl}")
+        if not (n["segment_reduce"] and n["queue_walk"]):
+            raise AssertionError(f"verify {verify!r} run missed K1 or K2: "
+                                 f"{n}")
+        runs[verify] = (wall, n, cap, steps)
+        if verify:
+            for k in launches:
+                launches[k] += n[k]
+                captured[k] += cap[k]
+    base = runs[""]
+    for verify in ("finite", "parity"):
+        _, _, cap, steps = runs[verify]
+        same = len(steps) == len(base[3]) and all(
+            torch.equal(a, b) for a, b in zip(steps, base[3])) and all(
+            torch.equal(x, y) for c, d in zip(cap["queue_walk"],
+                                              base[2]["queue_walk"])
+            for x, y in zip(c, d))
+        if not same:
+            raise AssertionError(f"verify {verify}: K2's inputs or steps "
+                                 "differ from the unchecked run's")
+    posted, arrival, bounds = (t.cpu() for t in base[2]["queue_walk"][0])
+    _, t_plain = sync_time(lambda: ks.queue_walk_plain(posted, arrival,
+                                                       bounds))
+    walls = {k or "off": v[0] for k, v in runs.items()}
+    log(f"verify (a) full-width sweep ({sum(p.n_msgs for p in pats)} "
+        f"messages in the {len(pats)} levels, {posted.numel()} K2 arrivals "
+        f"in the arena): walls off "
+        f"{walls['off']:.3f} s, finite {walls['finite']:.3f} s (+"
+        f"{100 * (walls['finite'] / walls['off'] - 1):.2f} %), parity "
+        f"{walls['parity']:.3f} s (+"
+        f"{100 * (walls['parity'] / walls['off'] - 1):.2f} %); parity's "
+        f"plain K2 on the CPU alone {t_plain:.3f} s; winners equal phase "
+        f"4's, K2's inputs and steps bit-equal to the unchecked run; "
+        f"launches {runs['finite'][1]} / {runs['parity'][1]}")
+
+    # (b) the chaos drill on a fresh service of the six levels
+    drills = {}
+    for plan, verify in (("*:nan", "finite"), ("*:corrupt", "parity")):
+        reset_health()
+        svc = StrategyService(m, device=card, breaker_threshold=2,
+                              breaker_reset=0.5)
+        with chaos_env(plan, verify):
+            res, t_drill = sync_time(lambda: [svc.query(p) for p in pats])
+            fired = faults.active_specs()[0].fired
+        kinds = [type(r.error).__name__ for r in res]
+        if not (all(r.verdict is None for r in res)
+                and isinstance(res[0].error, BackendVerifyError)
+                and all(isinstance(r.error, (BackendVerifyError,
+                                             BackendUnavailable))
+                        for r in res)
+                and svc._breaker().state == "open"):
+            raise AssertionError(f"drill {plan} {verify}: {kinds}, breaker "
+                                 f"{svc._breaker().state}")
+        if svc.cache.n_entries or svc._arenas:
+            raise AssertionError(f"drill {plan}: a rejected output was "
+                                 "cached")
+        time.sleep(svc.breaker_reset + 0.1)
+        healed, t_heal = sync_time(lambda: svc.query_many(pats))
+        for lvl, (h, w) in enumerate(zip(healed, want)):
+            if not h.ok or h.degraded or h.cached:
+                raise AssertionError(f"drill {plan} healed level {lvl}: "
+                                     f"{h}")
+            _same_verdict(h.verdict, w, f"drill {plan} healed level {lvl}")
+        drills[plan] = kinds
+        log(f"verify (b) drill {plan} with {verify}: fired {fired} times, "
+            f"{len(res)} levels answered {kinds} in {t_drill:.3f} s, breaker "
+            f"open, both caches empty; disarmed, the probe after "
+            f"{svc.breaker_reset} s answered phase 9's verdicts in "
+            f"{t_heal:.3f} s")
+
+    # (c) the check is what catches the damage
+    values, ids, n_seg = captured["segment_reduce"][0]
+    with chaos_env():
+        with faults.inject("kernel.segment_reduce", "nan") as spec:
+            sums, maxs = ks.segment_reduce(values, ids, n_seg)
+    if not (bool(torch.isnan(sums).all()) and bool(torch.isnan(maxs).all())
+            and spec.fired == 1):
+        raise AssertionError("a poisoned K1 output did not come back with "
+                             "NaNs with the check off")
+    try:
+        with chaos_env(verify="finite"):
+            with faults.inject("kernel.segment_reduce", "nan"):
+                ks.segment_reduce(values, ids, n_seg)
+    except BackendVerifyError:
+        pass
+    else:
+        raise AssertionError("finite let a poisoned K1 output through")
+    reset_health()
+    log(f"verify (c): K1 on {values.numel()} messages poisoned with nan "
+        f"came back all NaN with the check off and raised "
+        f"BackendVerifyError under finite")
+    return kernel_sums(ks, "verify (finite and parity sweeps)", launches,
+                       captured, clock_hz, None)
+
+
+# -- phase 12: collective pricing -----------------------------------------------
+
+# One training step's collectives of qwen3-moe-30b-a3b (48 layers, d_model
+# 2048, 32 heads of 128 and 4 kv heads, 128 experts top-8 of width 768,
+# ~30.5 B parameters) on the reference's 2 x 16 x 16 production mesh (axes
+# pod, data, model; device = pod * 256 + data * 16 + model): 4 x 4096 tokens
+# a data replica, expert parallelism over each pod's 256 chips with capacity
+# factor 1.25.  Result shapes are per device, as XLA prints them.
+COLLECTIVES = {"arch": "qwen3-moe-30b-a3b", "layers": 48, "mesh": (2, 16, 16),
+               "pod": {"n_pods": 2, "rows": 16, "cols": 16}}
+
+
+def collective_step_hlo() -> str:
+    """The step's collectives as post-SPMD HLO text.  Inside the layers'
+    ``while`` body (trip count 48): the FSDP all-gather of a layer's
+    attention weights and the reduce-scatter of their float32 gradients over
+    ``data`` (``[32,16]<=[2,16,16]T(0,2,1)``), the tensor-parallel
+    all-reduce of the attention output over ``model`` (``[32,16]<=[512]``),
+    and the expert dispatch and combine all-to-alls over each pod's 256
+    chips (``[2,256]<=[512]``: 1,024 tokens x top-8 x 1.25 = 40 slots a
+    peer).  Outside it: the gradient all-reduce over ``pod``
+    (``[256,2]<=[2,256]T(1,0)``, a chip's 1/256 of the parameters in
+    float32), one all-to-all over all 512 chips (the next batch's tokens)
+    and a ``collective-permute`` ring over the 512 chips."""
+    ring = ",".join(f"{{{i},{(i + 1) % 512}}}" for i in range(512))
+    w = "(bf16[2048,256]{1,0}, bf16[2048,32]{1,0}, bf16[2048,32]{1,0}, " \
+        "bf16[256,2048]{1,0})"
+    g = "(f32[128,256]{1,0}, f32[128,32]{1,0}, f32[128,32]{1,0}, " \
+        "f32[16,2048]{1,0})"
+    state = "(s32[], bf16[4,4096,2048])"
+    return f"""HloModule jit_train_step, num_partitions=512
+
+%add (x: f32[], y: f32[]) -> f32[] {{
+  %x = f32[] parameter(0)
+  %y = f32[] parameter(1)
+  ROOT %add.1 = f32[] add(%x, %y)
+}}
+
+%layer_body (p: {state}) -> {state} {{
+  %p = {state} parameter(0)
+  %h = bf16[4,4096,2048]{{2,1,0}} get-tuple-element(%p), index=1
+  %wg = {w} all-gather(%h), channel_id=1, replica_groups=[32,16]<=[2,16,16]T(0,2,1), dimensions={{0}}, use_global_device_ids=true
+  %attn = bf16[4,4096,2048]{{2,1,0}} all-reduce(%h), channel_id=2, replica_groups=[32,16]<=[512], use_global_device_ids=true, to_apply=%add
+  %disp = bf16[256,40,2048]{{2,1,0}} all-to-all(%attn), channel_id=3, replica_groups=[2,256]<=[512], dimensions={{0}}
+  %comb = bf16[256,40,2048]{{2,1,0}} all-to-all(%disp), channel_id=4, replica_groups=[2,256]<=[512], dimensions={{0}}
+  %gs = {g} reduce-scatter(%wg), channel_id=5, replica_groups=[32,16]<=[2,16,16]T(0,2,1), dimensions={{0}}, use_global_device_ids=true, to_apply=%add
+  %i = s32[] get-tuple-element(%p), index=0
+  ROOT %t = {state} tuple(%i, %attn)
+}}
+
+%layer_cond (p: {state}) -> pred[] {{
+  %p = {state} parameter(0)
+  ROOT %c = pred[] constant(true)
+}}
+
+ENTRY %main (a: bf16[4,4096,2048], g: f32[29100,4096]) -> f32[29100,4096] {{
+  %a = bf16[4,4096,2048]{{2,1,0}} parameter(0)
+  %g = f32[29100,4096]{{1,0}} parameter(1)
+  %s = {state} tuple(%a)
+  %wh = {state} while(%s), condition=%layer_cond, body=%layer_body
+  %gr = f32[29100,4096]{{1,0}} all-reduce(%g), channel_id=6, replica_groups=[256,2]<=[2,256]T(1,0), use_global_device_ids=true, to_apply=%add
+  %tok = bf16[512,32,2048]{{2,1,0}} all-to-all(%a), channel_id=7, replica_groups=[1,512]<=[512], dimensions={{0}}
+  %shift = bf16[1024,2048]{{1,0}} collective-permute(%a), channel_id=8, source_target_pairs={{{ring}}}
+  ROOT %out = f32[29100,4096]{{1,0}} add(%gr, %gr)
+}}
+"""
+
+
+def collective_pricing(ks, clock_hz, card=None) -> dict:
+    """ROADMAP item 7 on the card (``card``, ``None`` = CUDA): the step of
+    :func:`collective_step_hlo` parsed (trip count 48), decomposed into
+    point-to-point messages on the 2 x 16 x 16 pod and priced by
+    ``price_step`` with ``tpu_v5e()``'s table on the card, with K1's count
+    set to 0 just before and every K1 input captured and held to its plain
+    version, and on the cpu: every ``CollectiveCost`` field and the step
+    totals within rtol 1e-4 / atol 1e-6.  Prints the parse, decompose and
+    pricing walls, the device-busy share of a profiled pricing, and per op
+    kind the model time against the naive ``bytes / link_bw`` time.
+    Returns, per kernel, its launches on the pricing and their calls'
+    summed times and bound."""
+    from repro_torch.core import (PodGeometry, decompose_collective,
+                                  parse_collectives, price_step, tpu_v5e)
+
+    text = collective_step_hlo()
+    ops, t_parse = sync_time(lambda: parse_collectives(
+        text, default_trip_count=COLLECTIVES["layers"]))
+    sets, t_dec = sync_time(lambda: [decompose_collective(op) for op in ops])
+    kinds = [(op.kind, op.count, op.group_size) for op in ops]
+    n_msgs = [ms.src.size for ms in sets]
+    want = [("all-gather", 48, 16), ("all-reduce", 48, 16),
+            ("all-to-all", 48, 256), ("all-to-all", 48, 256),
+            ("reduce-scatter", 48, 16), ("all-reduce", 1, 2),
+            ("all-to-all", 1, 512), ("collective-permute", 1, 2)]
+    if kinds != want or n_msgs != [512, 512, 130560, 130560, 512, 512,
+                                   261632, 512]:
+        raise AssertionError(f"collective parse: {kinds}, {n_msgs}")
+    geom, params = PodGeometry(**COLLECTIVES["pod"]), tpu_v5e()
+    step, t_price, n, cap, _ = counted_kernels(
+        ks, lambda: price_step(ops, geom, params, device=card))
+    cpu = price_step(ops, geom, params, device="cpu")
+    for a, b in zip(step.per_op, cpu.per_op):
+        got, ref = dataclasses.asdict(a), dataclasses.asdict(b)
+        if (got["kind"], got["count"]) != (ref["kind"], ref["count"]):
+            raise AssertionError(f"collective op {got} against {ref}")
+        np.testing.assert_allclose(
+            [got[k] for k in ref if isinstance(ref[k], float)],
+            [ref[k] for k in ref if isinstance(ref[k], float)],
+            rtol=RTOL, atol=ATOL, err_msg=f"collective {a.kind}")
+    totals = ("naive_time", "transport", "queue", "contention", "model_time",
+              "total_wire_bytes", "total_msgs")
+    np.testing.assert_allclose([getattr(step, k) for k in totals],
+                               [getattr(cpu, k) for k in totals],
+                               rtol=RTOL, atol=ATOL, err_msg="step totals")
+    if n["segment_reduce"] == 0:
+        raise AssertionError("price_step did not launch K1")
+    log(f"collectives: {COLLECTIVES['arch']} step on the "
+        f"{COLLECTIVES['mesh']} mesh, {len(ops)} ops, {sum(n_msgs)} "
+        f"messages a pass ({sum(c * m for (_, c, _), m in zip(kinds, n_msgs))}"
+        f" a step); parse {1e3 * t_parse:.2f} ms, decompose "
+        f"{1e3 * t_dec:.2f} ms (host), price_step {1e3 * t_price:.2f} ms "
+        f"(decompose again, host pricing inputs, one K1 call, one read); "
+        f"held to the cpu within rtol {RTOL}; launches {n}")
+    by_kind = {}
+    for c in step.per_op:
+        k = by_kind.setdefault(c.kind, [0.0, 0.0, 0])
+        k[0] += c.model_time * c.count
+        k[1] += c.naive_time * c.count
+        k[2] += c.count
+    for kind, (model, naive, count) in by_kind.items():
+        log(f"  {kind:18s} x{count:<3d} model {1e3 * model:10.4f} ms, naive "
+            f"bytes/link_bw {1e3 * naive:10.4f} ms, model / naive "
+            f"{model / naive:8.3f}")
+    log(f"  step: model {1e3 * step.model_time:.4f} ms (transport "
+        f"{1e3 * step.transport:.4f}, queue {1e3 * step.queue:.4f}, "
+        f"contention {1e3 * step.contention:.4f}), naive "
+        f"{1e3 * step.naive_time:.4f} ms; busiest chip "
+        f"{step.total_wire_bytes:.6g} bytes in {step.total_msgs:.6g} "
+        f"messages")
+    prof = device_share(lambda: price_step(ops, geom, params, device=card))
+    return kernel_sums(ks, "collectives", n, cap, clock_hz, prof)
+
+
+# -- phase 16: kernel figures ------------------------------------------------
 
 def k2_chain_ops(ks, posted, arrival, bounds):
     """(ops of the longest region's serial chain, ops of all regions) of
@@ -2732,7 +3066,7 @@ def k4_k5_parity(dev) -> None:
         f"path")
 
 
-# -- phases 11 and 12: the model -------------------------------------------------
+# -- phases 13 and 14: the model -------------------------------------------------
 
 def prompt_inputs(cfg, B: int, S: int, seed: int) -> dict:
     """A seeded prompt of ``cfg``'s family as numpy arrays, keyed as
@@ -2976,7 +3310,7 @@ def serve_engine(cfg, model, fa, ssd) -> None:
         log(f"  req {r.uid}: prompt {r.prompt} -> {r.output}")
 
 
-# -- phase 13: the rest of nn/ -------------------------------------------------
+# -- phase 15: the rest of nn/ -------------------------------------------------
 
 # the full-width runs of the other families: deepseek-moe-16b as published;
 # whisper-small as published on 1,500 frame embeddings; qwen2-vl-72b at full
@@ -3457,7 +3791,7 @@ def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def rest_of_nn() -> dict:
-    """Phase 13: the families of ``nn/`` beyond hymba at full width; K4's
+    """Phase 15: the families of ``nn/`` beyond hymba at full width; K4's
     figures on each path, keyed by config."""
     return {"deepseek-moe-16b": deepseek_full(),
             "whisper-small": whisper_full(),
@@ -3465,7 +3799,7 @@ def rest_of_nn() -> dict:
             "llama3.2-3b kv_quant": kv_quant_full()}
 
 
-# -- phase 14: K4 and K5 figures --------------------------------------------------
+# -- phase 16: K4 and K5 figures --------------------------------------------------
 
 def k4_call_figures(fa, q, k, v, causal) -> dict:
     """CUDA-event times of one K4 call (the wrapper, the launch alone, the
@@ -3626,6 +3960,8 @@ def main() -> int:
     delta, drifted = delta_repricing(ks, levels, clock_mhz * 1e6)
     service = strategy_service(ks, pats, verdicts, drifted, clock_mhz * 1e6)
     execution = execution_layer(ks, pats, clock_mhz * 1e6)
+    verify = post_kernel_check(ks, pats, verdicts, clock_mhz * 1e6)
+    collectives = collective_pricing(ks, clock_mhz * 1e6)
     small_model()
     model_run = full_model()
     model_rows = model_kernel_rows(*model_run)
@@ -3635,9 +3971,11 @@ def main() -> int:
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
     for row in rows:        # K1 and K2: their calls on the registry sweep,
         row["registry"] = registry[row["name"]]   # on delta re-pricing, on
-        row["delta"] = delta[row["name"]]         # the strategy service and
-        row["service"] = service[row["name"]]     # on the execution layer
-        row["exec"] = execution[row["name"]]
+        row["delta"] = delta[row["name"]]         # the strategy service, on
+        row["service"] = service[row["name"]]     # the execution layer and
+        row["exec"] = execution[row["name"]]      # under the post-kernel
+        row["verify"] = verify[row["name"]]       # check; K1's on the
+    rows[0]["collectives"] = collectives["segment_reduce"]  # collectives
     rows.append(k3_row(*k3_run))
     rows.extend(model_rows)
     log(f"paper measurements launches (Figs. 10-11 at full width): "
@@ -3650,6 +3988,10 @@ def main() -> int:
         f"{k} {v['launches']}" for k, v in service.items()))
     log("execution layer launches: " + ", ".join(
         f"{k} {v['launches']}" for k, v in execution.items()))
+    log("post-kernel check launches: " + ", ".join(
+        f"{k} {v['launches']}" for k, v in verify.items()))
+    log(f"collective pricing launches: segment_reduce "
+        f"{collectives['segment_reduce']['launches']}")
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

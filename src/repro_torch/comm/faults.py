@@ -9,8 +9,8 @@ fire count), so a chaos run reproduces exactly.
 Sites (:data:`SITES`):
 
 ==========================  =================================================
-``kernel.segment_reduce``   each launch of K1 (``kernels.comm_stack``)
-``kernel.queue_walk``       each launch of K2 (``kernels.comm_stack``)
+``kernel.segment_reduce``   each call of K1 (``kernels.comm_stack``)
+``kernel.queue_walk``       each call of K2 (``kernels.comm_stack``)
 ``stack.device_store``      arena column shipping (``comm.stack.put_column``)
 ``serve.cache_read``        strategy-service arena-cache read
 ``serve.cache_write``       strategy-service arena-cache write
@@ -38,17 +38,19 @@ Arming a site, two equivalent ways:
 
 Instrumented code calls :func:`fail_point` (raises for armed raise/timeout
 specs) and :func:`poison` (transforms outputs for armed nan/corrupt specs);
-both are no-ops when nothing matches.  In the port the device sites
-(``kernel.*``, ``stack.device_store``) only raise: nothing catches there
-and nothing falls back, so the exception reaches the caller — on the
+both are no-ops when nothing matches.  In the port nothing catches at a
+device site and nothing falls back: a raise reaches the caller — on the
 service path, the service, which records it and answers with an error
-result.  They have no ``poison`` call yet (ROADMAP item 12 adds it with a post-kernel check), so
-a ``nan`` or ``corrupt`` spec that would match one is refused when it is
-made rather than armed to fire never.  The service's cache sites poison
-their bytes, which the cache's checksum catches.
+result.  A poisoned device output (K1's sums and maxima, K2's steps, an
+arena column) is caught, when ``REPRO_STACK_VERIFY`` asks for it, by the
+post-kernel check of :mod:`repro_torch.kernels.comm_stack`, which raises
+``BackendVerifyError``; with the check off it passes through.  The
+service's cache sites poison their bytes, which the cache's checksum
+catches.
 
 Port note: a copy of the reference's plan language, matching and poison
-(str, bytes, numpy arrays and tuples of them).
+(str, bytes, numpy arrays and tuples of them), whose poison also takes
+torch tensors with the same semantics.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ import fnmatch
 import os
 
 import numpy as np
+import torch
 
 __all__ = ["SITES", "MODES", "FaultSpec", "InjectedFault", "InjectedTimeout",
            "inject", "fail_point", "poison", "active_specs", "any_armed",
@@ -76,11 +79,6 @@ SITES = (
 #: Injection modes: raise / timeout fire at :func:`fail_point`, nan /
 #: corrupt transform outputs at :func:`poison`.
 MODES = ("raise", "timeout", "nan", "corrupt")
-
-#: The sites that call :func:`fail_point` alone (no :func:`poison` yet), so
-#: no ``nan`` / ``corrupt`` spec may cover them.
-_RAISE_ONLY_SITES = ("kernel.segment_reduce", "kernel.queue_walk",
-                    "stack.device_store")
 
 #: Env var holding the process-wide fault plan (chaos runs):
 #: ``site:mode[:times]`` entries, comma-separated; ``site`` may be a glob.
@@ -121,13 +119,6 @@ class FaultSpec:
                              f"expected one of {MODES}")
         if self.times is not None and self.times < 1:
             raise ValueError(f"times must be >= 1, got {self.times}")
-        if self.mode in ("nan", "corrupt"):
-            hit = [s for s in _RAISE_ONLY_SITES if self.matches(s)]
-            if hit:
-                raise ValueError(
-                    f"mode {self.mode!r} cannot be armed at {hit}: the "
-                    "device sites only raise until ROADMAP item 12 gives "
-                    "them poison and a post-kernel check")
 
     def matches(self, site: str) -> bool:
         """Whether this spec covers ``site`` (exact or glob match)."""
@@ -231,6 +222,8 @@ def _poison_value(value, mode: str):
     if isinstance(value, (str, bytes)):
         junk = "\x00corrupt\x00" if isinstance(value, str) else b"\x00corrupt\x00"
         return junk + value
+    if isinstance(value, torch.Tensor):
+        return _poison_tensor(value, mode)
     arr = np.asarray(value)
     if mode == "nan":
         if np.issubdtype(arr.dtype, np.floating):
@@ -246,14 +239,26 @@ def _poison_value(value, mode: str):
     return arr + np.ones_like(arr)
 
 
+def _poison_tensor(t: torch.Tensor, mode: str) -> torch.Tensor:
+    # a new tensor on the same device, never a write through ``t``: K1's
+    # sums and maxima are two views of one buffer
+    if mode == "nan":
+        return torch.full_like(t, float("nan")) if t.is_floating_point() \
+            else t
+    if t.is_floating_point():
+        return t * 1.01 + 1.0
+    return t + torch.ones_like(t)
+
+
 def poison(site: str, value):
     """The output-poisoning trigger, called on an instrumented site's result.
 
     When an armed ``nan`` / ``corrupt`` spec matches ``site``, returns a
     poisoned copy of ``value`` (tuples poison element-wise; float arrays
-    are NaN-filled under ``nan``, which leaves integer outputs
+    and tensors are NaN-filled under ``nan``, which leaves integer outputs
     intact; ``corrupt`` shifts numeric outputs off their true values and
-    garbles strings and bytes).  Otherwise returns ``value`` unchanged.
+    garbles strings and bytes).  A tensor's poisoned copy is a new tensor
+    on its device.  Otherwise returns ``value`` unchanged.
     """
     spec = _match(site, ("nan", "corrupt"))
     if spec is None:

@@ -57,8 +57,11 @@ def as_stack(phases, device=None):
 def put_column(a, what: str, device: torch.device) -> torch.Tensor:
     """A host array on ``device``: float64 as float32, int64 as int32
     (raising :class:`~repro_torch.comm.guard.ArenaOverflowError` when a
-    value lies outside int32).  Passes the fault site
-    ``stack.device_store`` first, which only raises."""
+    value lies outside int32).  It is the fault site ``stack.device_store``
+    on either device: an armed raise fires first, and the shipped column
+    passes :func:`~repro_torch.kernels.comm_stack.verified` against the
+    cast host array (``parity``: bit-equal, a copy is exact), so a poisoned
+    column raises before any caller can cache it."""
     faults.fail_point("stack.device_store")
     a = np.asarray(a)
     if a.dtype == np.float64:
@@ -69,7 +72,9 @@ def put_column(a, what: str, device: torch.device) -> torch.Tensor:
                 f"arena column {what!r} exceeds int32 range; split the "
                 "sweep into smaller stacks")
         a = a.astype(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    host = torch.from_numpy(np.ascontiguousarray(a))
+    return ks.verified("stack.device_store", host.to(device), lambda: host,
+                       exact=True)
 
 
 #: Per-message arrays concatenated into the arena, in CommPhase field order.

@@ -1,9 +1,8 @@
-"""Parameter tables, torus topology, the model ladder and the parameter
-fits.
+"""Parameter tables, torus topology, the model ladder, the parameter fits,
+HLO collective extraction and collective decomposition and pricing.
 
-Re-exports the names of ``repro.core``'s ``__all__`` that the port defines
-in the same submodules; HLO extraction and collective decomposition wait
-for ROADMAP item 7.
+Re-exports every name of ``repro.core``'s ``__all__`` from the same
+submodules.
 """
 from .params import (CommParams, blue_waters, tpu_v5e, lassen, frontier,
                      HETERO_LOCALITIES, SHORT, EAGER, REND, PROTOCOL_NAMES)
@@ -14,6 +13,10 @@ from .models import (CostBreakdown, message_time, queue_time, contention_time,
 from .topology import TorusTopology, average_hops, contention_ell, cube_side
 from .fitting import (fit_alpha_beta, fit_node_aware_table, fit_RN, fit_gamma,
                       fit_delta, fit_rails)
+from .hlo import CollectiveOp, parse_collectives, collective_summary, shape_bytes
+from .decompose import (PodGeometry, MessageSet, decompose_collective,
+                        price_collective, price_step, StepCommModel,
+                        CollectiveCost)
 
 __all__ = [
     "CommParams", "blue_waters", "tpu_v5e", "lassen", "frontier",
@@ -25,4 +28,7 @@ __all__ = [
     "TorusTopology", "average_hops", "contention_ell", "cube_side",
     "fit_alpha_beta", "fit_node_aware_table", "fit_RN", "fit_gamma",
     "fit_delta", "fit_rails",
+    "CollectiveOp", "parse_collectives", "collective_summary", "shape_bytes",
+    "PodGeometry", "MessageSet", "decompose_collective", "price_collective",
+    "price_step", "StepCommModel", "CollectiveCost",
 ]

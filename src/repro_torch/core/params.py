@@ -301,3 +301,16 @@ def frontier() -> CommParams:
         network_locality=HETERO_NETWORK_LOCALITY,
         n_rails=4,                      # 4 Slingshot NICs per node
     )
+
+
+# Model parameters of a TPU v5e pod (per chip), the reference's: the
+# collective pricing of :mod:`repro_torch.core.decompose` prices XLA
+# collectives on that pod with them.  They describe the priced machine, not
+# the card the port runs on.
+V5E_PEAK_FLOPS_BF16 = 197e12     # FLOP/s
+V5E_HBM_BW = 819e9               # bytes/s
+V5E_ICI_LINK_BW = 50e9           # bytes/s per link
+V5E_ICI_LINKS_PER_CHIP = 4       # 2-D torus: +-x, +-y
+V5E_DCN_BW_PER_HOST = 25e9       # bytes/s
+V5E_CHIPS_PER_HOST = 4
+V5E_HBM_PER_CHIP = 16 * 1024**3  # bytes

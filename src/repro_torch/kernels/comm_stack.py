@@ -22,10 +22,19 @@ K2, :func:`queue_walk`
 Each wrapper checks device, dtype, shape, contiguity and index ranges and
 raises on anything else.  A tensor on the CPU takes the plain version; a
 CUDA tensor launches the kernel or raises — there is no fallback.  Every
-launch passes the fault site ``kernel.segment_reduce`` or
-``kernel.queue_walk`` first (:mod:`repro_torch.comm.faults`; an armed site
-raises to the caller) and adds one to :data:`LAUNCHES`, so a run can show
-that its main path went through the kernels.
+launch adds one to :data:`LAUNCHES`, so a run can show that its main path
+went through the kernels.
+
+Each wrapper call, on either device, is the fault site
+``kernel.segment_reduce`` or ``kernel.queue_walk``
+(:mod:`repro_torch.comm.faults`): an armed raise or timeout fires before
+the work, and the output then passes :func:`verified` — an armed ``nan`` /
+``corrupt`` spec poisons it, and the ``REPRO_STACK_VERIFY`` post-kernel
+check (``finite`` | ``parity``, :func:`verify_mode`) rejects the damage
+with :class:`BackendVerifyError`, recorded in the health ledger.  A
+rejected output is never replaced by the plain result: the error reaches
+the caller.  The private launchers (``_segment_reduce_cuda``,
+``_queue_walk_cuda``) are raw: no site, no check.
 
 The kernels are built at first use by :mod:`repro_torch.kernels.build`
 (``nvcc`` into ``_build/``, bound with ``ctypes``); ``build_kernels`` is
@@ -34,6 +43,7 @@ re-exported here.  Nothing is compiled when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -59,12 +69,99 @@ def reset_launches() -> None:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    # the fault site ``kernel.<name>`` only raises: nothing catches here and
-    # nothing falls back (comm imports this module, hence the late import)
-    from repro_torch.comm import faults
-    faults.fail_point(f"kernel.{name}")
     launch(kernel(name, name, _ARGTYPES[name]), device, *args)
     LAUNCHES[name] += 1
+
+
+# -- the post-kernel check ------------------------------------------------------
+
+#: Allowed ``REPRO_STACK_VERIFY`` values: ``''`` (off), ``finite`` (reject
+#: non-finite float outputs), ``parity`` (hold outputs to the plain version
+#: on CPU copies of the inputs, float sums in float64).
+VERIFY_MODES = ("", "finite", "parity")
+
+
+class BackendVerifyError(RuntimeError):
+    """A device output failed the ``REPRO_STACK_VERIFY`` post-kernel check."""
+
+
+def verify_mode() -> str:
+    """The active post-kernel check, from ``REPRO_STACK_VERIFY``.
+
+    ``finite`` rejects NaN/inf in float outputs; ``parity`` recomputes the
+    plain version and rejects outputs off it (integers bit-equal, floats
+    allclose at rtol 1e-4 / atol 1e-6 in float64).  Either rejection is a
+    :class:`BackendVerifyError`.  An unknown value raises ``ValueError``
+    naming the allowed modes.
+    """
+    mode = os.environ.get("REPRO_STACK_VERIFY", "")
+    if mode not in VERIFY_MODES:
+        raise ValueError(
+            f"unknown REPRO_STACK_VERIFY value {mode!r}; allowed values: "
+            f"{VERIFY_MODES}")
+    return mode
+
+
+def _leaves(value) -> tuple:
+    return value if isinstance(value, tuple) else (value,)
+
+
+def _check_finite(value) -> None:
+    for leaf in _leaves(value):
+        if leaf.is_floating_point() and not bool(torch.isfinite(leaf).all()):
+            raise BackendVerifyError(
+                "device output contains non-finite values "
+                "(REPRO_STACK_VERIFY=finite)")
+
+
+def _check_parity(value, ref, exact: bool = False) -> None:
+    for got, want in zip(_leaves(value), _leaves(ref)):
+        g, w = got.cpu(), want.cpu()
+        if g.shape != w.shape:
+            ok = False
+        elif exact or not (g.is_floating_point() or w.is_floating_point()):
+            # integer outputs (and copies) are bit-equal by contract;
+            # allclose would let a +1 shift on large values slide under rtol
+            ok = torch.equal(g, w.to(g.dtype))
+        else:
+            ok = torch.allclose(g.double(), w.double(), rtol=1e-4, atol=1e-6,
+                                equal_nan=False)
+        if not ok:
+            raise BackendVerifyError(
+                "device output does not match the plain version "
+                "(REPRO_STACK_VERIFY=parity)")
+
+
+def verified(site: str, out, plain, exact: bool = False):
+    """``out`` of the device site ``site`` (a tensor or a tuple of them),
+    poisoned by an armed ``nan`` / ``corrupt`` spec at ``site``, then held
+    to the active :func:`verify_mode`: ``plain()`` computes the reference
+    for ``parity`` (on CPU copies of the inputs), compared bit for bit when
+    ``exact``.  A rejection is recorded in the health ledger under the
+    output's device and raised as :class:`BackendVerifyError`; nothing is
+    returned in its place."""
+    from repro_torch.comm import faults
+    from repro_torch.comm.health import get_health
+
+    out = faults.poison(site, out)
+    mode = verify_mode()
+    if not mode:
+        return out
+    try:
+        if mode == "finite":
+            _check_finite(out)
+        else:
+            _check_parity(out, plain(), exact)
+    except BackendVerifyError as e:
+        get_health().record_failure(str(_leaves(out)[0].device), site, e)
+        raise
+    return out
+
+
+def _fail_point(site: str) -> None:
+    # comm imports this module, hence the late import
+    from repro_torch.comm import faults
+    faults.fail_point(site)
 
 
 # K1's geometry, mirrored from ``csrc/segment_reduce.cu`` (kBinCap,
@@ -148,7 +245,9 @@ def segment_reduce(values: torch.Tensor, ids: torch.Tensor,
     On CUDA tensors this is one call of K1 on the path :func:`k1_path`
     picks, whose sums are float32-allclose (rtol 1e-4, atol 1e-6) to a
     sequential sum, not bit-equal, and whose maxima are exact; on CPU
-    tensors it is :func:`segment_reduce_plain`.
+    tensors it is :func:`segment_reduce_plain`.  On either device the call
+    is the fault site ``kernel.segment_reduce`` and its output passes
+    :func:`verified`.
     """
     _check(values, torch.float32, "values")
     _check(ids, torch.int32, "ids")
@@ -164,9 +263,15 @@ def segment_reduce(values: torch.Tensor, ids: torch.Tensor,
         if lo < 0 or hi >= n_seg:
             raise ValueError(f"segment ids must lie in [0, {n_seg}), got "
                              f"[{lo}, {hi}]")
-    if dev.type == "cpu":
-        return segment_reduce_plain(values, ids, n_seg)
-    return _segment_reduce_cuda(values, ids, n_seg)
+    _fail_point("kernel.segment_reduce")
+    out = (segment_reduce_plain(values, ids, n_seg) if dev.type == "cpu"
+           else _segment_reduce_cuda(values, ids, n_seg))
+    # parity's reference sums in float64: the float32 plain version adds a
+    # segment's values one by one on the CPU, which drifts past rtol 1e-4
+    # on a segment of 10^5-10^6 messages where K1 does not
+    return verified("kernel.segment_reduce", out,
+                    lambda: segment_reduce_plain(values.cpu().double(),
+                                                 ids.cpu(), n_seg))
 
 
 def _segment_reduce_cuda(values: torch.Tensor, ids: torch.Tensor,
@@ -315,7 +420,9 @@ def queue_walk(posted: torch.Tensor, arrival: torch.Tensor,
     Same contract as :func:`queue_walk_plain` (int64 in, int64 steps out,
     bit-equal for any schedule).  On CUDA tensors the layout is computed
     with torch ops on the card and K2 walks every region in one launch
-    (int32 inside); on CPU tensors this is :func:`queue_walk_plain`.
+    (int32 inside); on CPU tensors this is :func:`queue_walk_plain`.  On
+    either device the call is the fault site ``kernel.queue_walk`` and its
+    output passes :func:`verified`.
     Raises when the tree would not fit int32 indexing.
     """
     layout = _queue_layout(posted, arrival, bounds)
@@ -323,9 +430,12 @@ def queue_walk(posted: torch.Tensor, arrival: torch.Tensor,
     if tree_len - 1 >= _INT32_MAX:
         raise ValueError(f"queue walk tree of {tree_len} cells exceeds "
                          "int32 indexing")
-    if posted.device.type == "cpu":
-        return _queue_walk_lockstep(*layout)
-    return _queue_walk_cuda(*layout[:2])
+    _fail_point("kernel.queue_walk")
+    steps = (_queue_walk_lockstep(*layout) if posted.device.type == "cpu"
+             else _queue_walk_cuda(*layout[:2]))
+    return verified("kernel.queue_walk", steps,
+                    lambda: queue_walk_plain(posted.cpu(), arrival.cpu(),
+                                             bounds.cpu()))
 
 
 def _queue_walk_cuda(b: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Prefill and serve step functions (counterpart of ``repro.launch.steps``).
 
 ``make_train_step`` and the abstract input specs of the dry-run wait for the
-training slice and the compile-and-price path (ROADMAP queue items 6-7).
+training slice and the compile-and-price path (ROADMAP queue items 6 and
+14).
 """
 from __future__ import annotations
 

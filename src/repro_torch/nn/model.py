@@ -24,7 +24,7 @@ Every entry point takes ``device=None``, meaning CUDA, and raises without a
 CUDA device; the CPU runs only when asked for with ``device="cpu"``.  The
 training objective (``lm_loss``, ``forward_hidden``) waits for ROADMAP
 queue item 6, the dry-run's abstract trees (``abstract_params``,
-``abstract_cache``) for item 7.
+``abstract_cache``) for item 14.
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ reference, which has no Pallas kernel here; the expert products are
 The reference routes D data shards at once (``_dp_groups``) and pins
 layouts with sharding constraints (``_constrain``, ``_constrain_moe_buf``).
 All three are the identity without a parallel context, which the port does
-not have yet (ROADMAP queue item 6), so the port routes one group (D = 1)
+not have yet (ROADMAP queue item 13), so the port routes one group (D = 1)
 and has none of them.
 """
 from __future__ import annotations

@@ -12,7 +12,7 @@ through one :func:`repro_torch.comm.strategies.best_strategy_many` call.
 
 Port note: every name of the reference's ``__all__`` except
 ``row_parallel_ops_from_pspecs``, which reads the jax sharding tree
-(ROADMAP queue item 7).
+(ROADMAP queue item 13).
 """
 from .moe import (ACT_BYTES, MoeA2APattern, a2a_capacity, moe_a2a_pattern,
                   pattern_from_counts, router_routing_counts,

@@ -27,7 +27,8 @@ calls, processes and platforms; no global numpy state is read or written.
 Port note: a copy of ``repro.workloads.moe``, host numpy throughout (the
 float32 router product and the stable argsort as written there), so every
 histogram and pattern is bit-equal to the reference's.  The jax modules
-named above are the reference's; their port is ROADMAP queue items 5 and 6.
+named above are the reference's: ``moe_ffn``'s port is
+:mod:`repro_torch.nn.moe`, ``ep_a2a``'s is ROADMAP queue item 15.
 """
 from __future__ import annotations
 

@@ -25,7 +25,7 @@ bit-identical patterns.
 
 Port note: a copy of ``repro.workloads.tp`` (host numpy) without
 ``row_parallel_ops_from_pspecs``: that cross-check reads the jax sharding
-tree, whose port is ROADMAP queue item 7.  The patterns use only
+tree, whose port is ROADMAP queue item 13.  The patterns use only
 :func:`row_parallel_ops_per_layer`, as the reference's do.
 """
 from __future__ import annotations

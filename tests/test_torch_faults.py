@@ -182,25 +182,53 @@ def test_poison_is_bit_equal_to_the_reference(mode, kind):
     assert faults.poison("serve.cache_read", value) is value   # disarmed
 
 
+def _device_site_calls():
+    """One call of each device site on CPU tensors: K1's and K2's
+    wrappers and an arena column's shipping."""
+    from repro_torch.comm.stack import put_column
+    from repro_torch.kernels import comm_stack as ks
+    return {
+        "kernel.segment_reduce": lambda: ks.segment_reduce(
+            torch.tensor([1.0, 2.5, 4.0]),
+            torch.tensor([0, 1, 0], dtype=torch.int32), 2),
+        "kernel.queue_walk": lambda: ks.queue_walk(
+            torch.tensor([1, 0, 2, 0]), torch.tensor([2, 0, 1, 0]),
+            torch.tensor([0, 3, 4])),
+        "stack.device_store": lambda: put_column(
+            np.array([64.0, 4096.0]), "size", torch.device("cpu")),
+    }
+
+
 @pytest.mark.parametrize("site", ["kernel.segment_reduce", "kernel.*",
                                   "stack.device_store", "*"])
 @pytest.mark.parametrize("mode", ["nan", "corrupt"])
-def test_poison_specs_at_the_raise_only_device_sites_are_refused(
+def test_poison_specs_at_the_device_sites_fire_and_are_caught(
         site, mode, monkeypatch):
-    # the device sites call fail_point alone: a poison spec there would arm
-    # and never fire, so the port refuses it by both ways of arming
-    with pytest.raises(ValueError, match="ROADMAP item 12"):
-        with faults.inject(site, mode):
-            pass
+    # a poison spec arms at every device site it covers, fires once a call
+    # there, and the matching check (nan: finite, corrupt: parity) rejects
+    # the damage; nan leaves K2's integer steps intact, so they pass
+    from repro_torch.kernels.comm_stack import BackendVerifyError
+    monkeypatch.setenv("REPRO_STACK_VERIFY",
+                       {"nan": "finite", "corrupt": "parity"}[mode])
+    hit = 0
+    with pytest.warns(RuntimeWarning, match="BackendVerifyError"):
+        with faults.inject(site, mode) as spec:
+            for name, call in _device_site_calls().items():
+                if not spec.matches(name):
+                    continue
+                if mode == "nan" and name == "kernel.queue_walk":
+                    assert call().tolist() == [3, 2, 1, 1]
+                else:
+                    with pytest.raises(BackendVerifyError):
+                        call()
+                hit += 1
+                assert spec.fired == hit, name
+    assert hit == {"kernel.segment_reduce": 1, "kernel.*": 2,
+                   "stack.device_store": 1, "*": 3}[site]
+    # the same spec arms from the env plan beside a service site
     monkeypatch.setenv(faults.ENV_VAR, f"serve.cache_read:raise,{site}:{mode}")
-    with pytest.raises(ValueError, match="only raise"):
-        faults.any_armed()
-    # the same modes stay open to the service's own sites, and raise and
-    # timeout to the device sites
-    for spec in (faults.FaultSpec("serve.*", mode),
-                 faults.FaultSpec(site, "raise"),
-                 faults.FaultSpec(site, "timeout")):
-        assert spec.fired == 0
+    assert [(s.site, s.mode) for s in faults.active_specs()] == [
+        ("serve.cache_read", "raise"), (site, mode)]
 
 
 # ======================================================== health ledger ==

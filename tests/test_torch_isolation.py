@@ -21,6 +21,8 @@ from repro_torch.comm.phase import CommPhase  # noqa: E402
 from repro_torch.comm.primitives import grouped_queue_steps  # noqa: E402
 from repro_torch.comm.stack import PhaseStack  # noqa: E402
 from repro_torch.comm.strategies import best_strategy_many  # noqa: E402
+from repro_torch.core import (CollectiveOp, PodGeometry,  # noqa: E402
+                              price_collective, price_step, tpu_v5e)
 from repro_torch.core.models import phase_cost  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import spmv_ell as ell  # noqa: E402
@@ -62,10 +64,12 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     # every module was imported: the V-cycle's and K3's, the model
     # slice's (nn, configs, launch, serve, K4, K5), the workload
     # registry's, delta re-pricing's (comm.delta, sparse.optimize), the
-    # strategy service's and the execution layer's among them
+    # strategy service's, the execution layer's and collective pricing's
+    # (core.hlo, core.decompose) among them
     mods = set(res.stdout.split())
-    assert len(mods) >= 67
-    assert {"repro_torch.serve.strategy", "repro_torch.serve.admission",
+    assert len(mods) >= 69
+    assert {"repro_torch.core.hlo", "repro_torch.core.decompose",
+            "repro_torch.serve.strategy", "repro_torch.serve.admission",
             "repro_torch.serve.cache", "repro_torch.comm.health",
             "repro_torch.comm.faults", "repro_torch.comm.delta",
             "repro_torch.sparse.optimize", "repro_torch.exec",
@@ -128,7 +132,11 @@ print(" ".join(left))
               "reset_health", "injected_payload", "delivered_payload"),
      ("BackendUnavailable",)),
     ("core", ("phase_cost_many", "CommParams", "TorusTopology", "phase_cost",
-              "sequence_cost", "fit_alpha_beta"), ()),
+              "sequence_cost", "fit_alpha_beta", "CollectiveOp",
+              "parse_collectives", "collective_summary", "shape_bytes",
+              "PodGeometry", "MessageSet", "decompose_collective",
+              "price_collective", "price_step", "StepCommModel",
+              "CollectiveCost"), ()),
     ("net", ("simulate_many", "blue_waters_machine", "MachineSpec",
              "simulate", "simulate_phase", "pingpong_sweep",
              "contention_line_test"), ()),
@@ -161,9 +169,9 @@ def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     assert res.returncode == 0, res.stderr + res.stdout
     ported, left = (line.split() for line in res.stdout.splitlines()[:2])
     assert set(must) <= set(ported), ported
-    if pkg in ("configs", "workloads", "serve", "exec"):
+    if pkg in ("core", "configs", "workloads", "serve", "exec"):
         # the one name left: the pspec cross-check needs the jax sharding
-        # tree (ROADMAP queue item 7)
+        # tree (ROADMAP queue item 13)
         assert left == (["row_parallel_ops_from_pspecs"]
                         if pkg == "workloads" else []), left
     if pkg == "comm":
@@ -186,6 +194,8 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
         grouped_queue_steps(np.array([1, 1]), 2,
                             arrival_order={1: np.array([1, 0])})
     ph = pat.bind(m)
+    ring = CollectiveOp("all-reduce", 1024.0, np.arange(8).reshape(1, 8),
+                        None, 1, "")
     tiny = Scenario(name="tiny", arch="llama3.2-3b",
                     workload="pipeline_p2p", n_ranks=64, tokens_per_rank=8,
                     n_stages=2, n_microbatches=1)
@@ -198,7 +208,9 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
                  lambda: pingpong_sweep(m, "inter_node", [8.0, 64.0]),
                  lambda: ph.queue_steps(arrival_order={40: np.array([0])}),
                  lambda: sweep([tiny], {"blue_waters": m}),
-                 lambda: StrategyService(m)):
+                 lambda: StrategyService(m),
+                 lambda: price_collective(ring, PodGeometry(), tpu_v5e()),
+                 lambda: price_step([ring], PodGeometry(), tpu_v5e())):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     # asked for explicitly, the host runs the plain versions
@@ -218,6 +230,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
     assert optimize_partition(poisson_3d(4), m, n_procs=4, moves=2,
                               device="cpu").cost > 0
     assert StrategyService(m, device="cpu").query(pat).ok
+    assert price_collective(ring, PodGeometry(), tpu_v5e(),
+                            device="cpu").transport > 0
+    assert price_step([ring], PodGeometry(), tpu_v5e(),
+                      device="cpu").model_time > 0
 
 
 def test_vcycle_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
