@@ -174,7 +174,30 @@ Phases, in order (any failure raises and the script exits non-zero):
    decode steps; llama3.2-3b with the int8 KV cache on 4 x 2048 tokens and
    32 decode steps beside the bf16 cache's (half the k/v bytes, logits
    within the reference's 0.08);
-16. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
+16. training: (a) K4's and K5's autograd Functions (the launch forward,
+   the torch-op backward) held on the card to ``torch.autograd`` of their
+   plain versions, on ragged shapes in float32 and bf16 and at hymba-1.5b's
+   training shapes (K4 bf16 ``[2, 4096, 25, 64]`` with 5 kv heads), each
+   gradient's worst error over its largest entry printed; (b) every smoke
+   config and hymba-1.5b at full width cut to 2 layers, float32, 2 x 256
+   ``SyntheticTokens`` tokens: ``lm_loss`` and every gradient leaf on cuda
+   held to cpu, K4 and K5 launched in the forward and again in each
+   checkpointed layer's recompute, and a ``make_train_step`` with
+   ``microbatches=2`` held to one with 1 (configs without experts); (c)
+   tinyllama-1.1b's smoke config through ``Trainer`` under
+   ``torch.use_deterministic_algorithms(True)``: 6 steps straight equal 3 +
+   crash + 3 resumed from the checkpoint, bit for bit; (d) hymba-1.5b as
+   published (1,640,144,000 parameters, bf16 weights, float32 AdamW
+   moments, ``remat``) on one fixed batch of 2 x 4096 tokens: a warm-up
+   step, 8 timed steps with K4's and K5's counts set to 0 just before (2 x
+   32 launches each a step, forward and recompute), the loss finite and
+   falling, step wall, training tokens/s, model-flop share, peak device
+   memory, one step split into forward, backward and optimizer, every K4
+   and K5 input of one step held to its plain version, K4's forward launch
+   beside its torch-op backward and SDPA's forward and backward, and the
+   device busy share of one profiled step; each model freed before the
+   next;
+17. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
    (K1's and K2's rows add ``registry``, ``delta``, ``service``, ``exec``
    and ``verify``: their launches on phase 7's sweep, on phase 8, on phase
    9's cold query and reprice, on phase 10 and on phase 11's two checked
@@ -189,8 +212,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    its ``path`` ("wgmma"), its TFLOP/s launch alone, ``vs_library``
    (launch alone over SDPA) and ``rest_of_nn`` (its launches and summed
    figures on each model of phase 15), K5's its ``path`` ("mma.sync
-   3xTF32"), and both their ``tc_launches``;
-17. the card's name and power limit as ``nvidia-smi`` reports them, then,
+   3xTF32"), and both their ``tc_launches`` and ``train`` (their launches
+   and summed figures on phase 16's hymba training, with their torch-op
+   backwards' times);
+18. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -2603,7 +2628,7 @@ def collective_pricing(ks, clock_hz, card=None) -> dict:
     return kernel_sums(ks, "collectives", n, cap, clock_hz, prof)
 
 
-# -- phase 16: kernel figures ------------------------------------------------
+# -- phase 17: kernel figures ------------------------------------------------
 
 def k2_chain_ops(ks, posted, arrival, bounds):
     """(ops of the longest region's serial chain, ops of all regions) of
@@ -3172,6 +3197,34 @@ def small_model() -> None:
         del gpu, cpu
 
 
+def spy_ops(names):
+    """Context: the entry points ``names`` of ``kernels.ops`` (K4's
+    ``flash_attention``, K5's ``ssd_intra_chunk``) record every call's
+    inputs, detached, as ``([args], kwargs)`` in the dict it yields, by
+    name, while it is open."""
+    from repro_torch.kernels import ops
+
+    captured = {name: [] for name in names}
+    real = {name: getattr(ops, name) for name in names}
+
+    def spy(name):
+        def call(*args, **kw):
+            captured[name].append(([a.detach() for a in args], kw))
+            return real[name](*args, **kw)
+        return call
+
+    @contextlib.contextmanager
+    def ctx():
+        for name in names:
+            setattr(ops, name, spy(name))
+        try:
+            yield captured
+        finally:
+            for name, fn in real.items():
+                setattr(ops, name, fn)
+    return ctx()
+
+
 def full_model():
     """hymba-1.5b at full width in bf16: prefill of 4 x 2048 tokens with K4
     and K5 counted and their inputs captured, 32 greedy decode steps, a
@@ -3179,7 +3232,7 @@ def full_model():
     calls, device ms of K4 and K5 over the profiled prefill)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ssd
+    from repro_torch.kernels import ssd
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.nn import init_params
 
@@ -3205,26 +3258,12 @@ def full_model():
     t_pre = sync_time(lambda: prefill_step(model, batch))[1]
     peak = torch.cuda.max_memory_allocated()
 
-    captured = {"flash_attention": [], "ssd_intra_chunk": []}
-    real = {name: getattr(ops, name) for name in captured}
-
-    def spy(name):
-        def call(*args, **kw):
-            captured[name].append((args, kw))
-            return real[name](*args, **kw)
-        return call
-
-    for name in real:
-        setattr(ops, name, spy(name))
-    try:
+    with spy_ops(("flash_attention", "ssd_intra_chunk")) as captured:
         fa.reset_launches()
         ssd.reset_launches()
         (logits, cache), t_counted = sync_time(
             lambda: prefill_step(model, batch))
         launches = {**fa.LAUNCHES, **ssd.LAUNCHES}
-    finally:
-        for name, fn in real.items():
-            setattr(ops, name, fn)
     log(f"full model prefill launches: {launches} (expected "
         f"{cfg.n_layers} each, one a layer)")
     for name, n in launches.items():
@@ -3336,22 +3375,12 @@ def k4_counted(fn):
     """``fn()`` with K4's counts set to 0 just before and the inputs of
     every K4 call captured: (result, wall s, launches, [(args, kwargs)])."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
 
-    calls, real = [], ops.flash_attention
-
-    def spy(*args, **kw):
-        calls.append((args, kw))
-        return real(*args, **kw)
-
-    ops.flash_attention = spy
-    try:
+    with spy_ops(("flash_attention",)) as captured:
         fa.reset_launches()
         out, wall = sync_time(fn)
         launches = dict(fa.LAUNCHES)
-    finally:
-        ops.flash_attention = real
-    return out, wall, launches, calls
+    return out, wall, launches, captured["flash_attention"]
 
 
 def k4_path(label: str, launches: dict, calls: list, want: int) -> dict:
@@ -3785,9 +3814,11 @@ def kv_quant_full() -> dict:
 
 
 def rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
-    """max |a - b| / max |b| in float32."""
+    """max |a - b| / max |b| in float32, 0 where a equals b (both may be
+    0: K5's cumA gradient at q 1)."""
     a, b = a.float(), b.float()
-    return float((a - b).abs().max() / b.abs().max())
+    err = float((a - b).abs().max())
+    return err / float(b.abs().max()) if err else 0.0
 
 
 def rest_of_nn() -> dict:
@@ -3799,7 +3830,561 @@ def rest_of_nn() -> dict:
             "llama3.2-3b kv_quant": kv_quant_full()}
 
 
-# -- phase 16: K4 and K5 figures --------------------------------------------------
+# -- phase 16: training ----------------------------------------------------------
+
+# hymba-1.5b as published trains on 2 x 4096 tokens: train_4k's sequence
+# length, its global batch of 256 cut to 2 for one card; a fixed batch
+# repeated, one warm-up step, then 8 timed ones
+TRAIN = {"arch": "hymba-1.5b", "batch": 2, "seq": 4096, "steps": 8,
+         "opt": {"lr": 1e-3, "warmup_steps": 2, "total_steps": 100},
+         "cut_batch": 2, "cut_seq": 256,
+         "resume": {"arch": "tinyllama-1.1b", "batch": 4, "seq": 64,
+                    "steps": 6, "crash": 3}}
+# K4's and K5's Functions (the launch forward, the torch-op backward)
+# against torch.autograd of their plain versions on the same card: each
+# gradient's largest error over its largest entry.  float32: the forwards
+# agree to K4_TOL / K5_TOL and the backwards run the same float32 ops in
+# another order.  bf16 (K4): both sides round each gradient to bf16 (2^-8
+# of an entry), and the backward's rowsum(dO * O) reads K4's bf16 output,
+# whose P was rounded to bf16 (the forward's bound, BF16_P_TOL): 2^-6 of the
+# largest gradient entry (tests/test_torch_train.py holds the same bound on
+# the CPU).
+GRAD_F32_REL = 1e-4
+GRAD_BF16_REL = 2.0 ** -6
+# the training path on cuda against cpu, float32: the loss within rtol 1e-5
+# and every gradient leaf within 1e-4 relative L2 plus 1e-6 (the CPU tests'
+# bounds against the reference)
+LOSS_RTOL = 1e-5
+LEAF_RTOL, LEAF_ATOL = 1e-4, 1e-6
+# K4 at hymba-1.5b's training shape (B, S, H, KH, D) and K5 at it (batch x
+# chunks, heads, q, n, p)
+TRAIN_K4 = (2, 4096, 25, 5, 64)
+TRAIN_K5 = (64, 50, 128, 16, 64)
+
+
+def function_grads(fn, args, grad_out):
+    """Gradients of ``fn(*args)`` at ``args`` (leaves made from them) for
+    the output gradients ``grad_out``; the output(s) too."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    return outs, torch.autograd.grad(outs, leaves, grad_out)
+
+
+def k4_grad_errs(fa, ops, q, k, v, causal, worst) -> float:
+    """K4's Function against autograd of its plain version on one input:
+    the forward to K4's own bound (``k4_err``), each gradient to
+    GRAD_F32_REL / GRAD_BF16_REL of its largest entry; ``worst`` keeps the
+    largest error of each gradient.  Returns the forward's error."""
+    gen = torch.Generator(device=q.device).manual_seed(q.shape[1])
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    (got,), g = function_grads(
+        lambda a, b, c: ops.flash_attention(a, b, c, causal=causal),
+        (q, k, v), (dout,))
+    (_,), w = function_grads(
+        lambda a, b, c: fa.flash_attention_plain(a, b, c, causal),
+        (q, k, v), (dout,))
+    with torch.no_grad():
+        err = k4_err(fa, q, k, v, causal)
+    bound = GRAD_BF16_REL if q.dtype == torch.bfloat16 else GRAD_F32_REL
+    for name, a, b in zip(("dq", "dk", "dv"), g, w):
+        e = rel_max(a, b)
+        if a.dtype != q.dtype or a.shape != b.shape or not e <= bound \
+                or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"K4 backward {name} off by {e} of its "
+                                 f"largest entry (limit {bound}; q "
+                                 f"{tuple(q.shape)}, {q.dtype}, causal "
+                                 f"{causal})")
+        key = (str(q.dtype)[6:], name)
+        worst[key] = max(worst.get(key, 0.0), e)
+    return err
+
+
+def k5_grad_errs(ssd, ops, dtx, Bm, Cm, cumA, worst) -> None:
+    """K5's Function against autograd of its plain version on one input,
+    the inputs as ``nn.ssm`` passes them (B and C expanded over the heads
+    with stride 0): each gradient to GRAD_F32_REL of its largest entry."""
+    G = dtx.shape[0] * dtx.shape[1]
+    q, p, n = dtx.shape[2], dtx.shape[3], Bm.shape[-1]
+    gen = torch.Generator(device=dtx.device).manual_seed(q)
+    gy = torch.randn(G, q, p, generator=gen, device=dtx.device)
+    gs = torch.randn(G, n, p, generator=gen, device=dtx.device)
+    # B and C as leaves [G1, 1, q, n], expanded inside
+    base = (dtx, Bm[:, :1], Cm[:, :1], cumA)
+    h = dtx.shape[1]
+
+    def run(f):
+        def call(d, b, c, a):
+            return f(d, b.expand(-1, h, -1, -1), c.expand(-1, h, -1, -1), a)
+        return function_grads(call, base, (gy, gs))[1]
+
+    g, w = run(ops.ssd_intra_chunk), run(ssd.ssd_intra_chunk_plain)
+    with torch.no_grad():
+        k5_err(ssd, dtx, Bm, Cm, cumA)
+    for name, a, b in zip(("d dtx", "dB", "dC", "d cumA"), g, w):
+        e = rel_max(a, b)
+        if a.shape != b.shape or not e <= GRAD_F32_REL \
+                or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"K5 backward {name} off by {e} of its "
+                                 f"largest entry (limit {GRAD_F32_REL}; "
+                                 f"dtx {tuple(dtx.shape)})")
+        worst[name] = max(worst.get(name, 0.0), e)
+
+
+def backward_parity() -> None:
+    """(a) K4's and K5's Functions on the card against ``torch.autograd``
+    of their plain versions: K4 on ragged float32 and bf16 shapes (D 64
+    and 128, rep 1 and 5, causal and full, S 63 and 200) and at
+    hymba-1.5b's training shape in bf16 (``[2, 4096, 25, 64]``, 5 kv
+    heads, causal); K5 on ragged q (1, 24, 100, 128) with B and C expanded
+    over 5 heads and at hymba-1.5b's training shape (64 (batch, chunk)
+    pairs, 50 heads, q 128, n 16, p 64)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    worst4, worst5, n4, n5 = {}, {}, 0, 0
+    fa.reset_launches()
+    ssd.reset_launches()
+    for D in (64, 128):
+        for rep in (1, 5):
+            for causal in (True, False):
+                for S in (63, 200):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        q, k, v = (torch.randn(2, S, h, D, generator=gen,
+                                               device="cuda").to(dtype)
+                                   for h in (2 * rep, 2, 2))
+                        k4_grad_errs(fa, ops, q, k, v, causal, worst4)
+                        n4 += 1
+    B, S, H, KH, D = TRAIN_K4
+    q, k, v = (torch.randn(B, S, h, D, generator=gen, device="cuda")
+               .bfloat16() for h in (H, KH, KH))
+    full4 = dict(worst4)
+    worst_full4 = {}
+    err = k4_grad_errs(fa, ops, q, k, v, True, worst_full4)
+    n4 += 1
+    del q, k, v
+    for q_len in (1, 24, 100, 128):
+        k5_grad_errs(ssd, ops, *k5_inputs(gen, 6, 5, q_len, 16, 64), worst5)
+        n5 += 1
+    worst_full5 = {}
+    k5_grad_errs(ssd, ops, *k5_inputs(gen, *TRAIN_K5), worst_full5)
+    n5 += 1
+    torch.cuda.synchronize()
+    # each Function launched its kernel once a case, the checks once more
+    launches = (fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_intra_chunk"])
+    if launches != (2 * n4, 2 * n5):
+        raise AssertionError(f"backward parity launched K4/K5 {launches} "
+                             f"times, expected {(2 * n4, 2 * n5)}")
+    torch.cuda.empty_cache()
+    log(f"training (a) backward parity on the card: K4 {n4} cases (D 64/128, "
+        f"rep 1/5, causal and full, S 63/200, float32 and bf16; hymba's "
+        f"training shape (B, S, H, KH, D) {TRAIN_K4} bf16 causal), worst gradient error"
+        f" over its largest entry " + ", ".join(
+            f"{t} {g} {e:.3g}" for (t, g), e in sorted(full4.items()))
+        + f"; at the training shape " + ", ".join(
+            f"{g} {e:.3g}" for (_, g), e in sorted(worst_full4.items()))
+        + f" (forward max abs err {err:.3g}; limits float32 {GRAD_F32_REL},"
+        f" bf16 {GRAD_BF16_REL}); K5 {n5} cases (q 1/24/100/128, n 16, p 64,"
+        f" B and C expanded over 5 heads; hymba's training shape (batch x "
+        f"chunks, heads, q, n, p) {TRAIN_K5}): " + ", ".join(
+            f"{g} {e:.3g}" for g, e in sorted(worst5.items()))
+        + "; at the training shape " + ", ".join(
+            f"{g} {e:.3g}" for g, e in sorted(worst_full5.items()))
+        + f" (limit {GRAD_F32_REL})")
+
+
+def training_batch(cfg, batch: int, seq: int) -> dict:
+    """``SyntheticTokens``' batch 0 for ``cfg``'s family (numpy)."""
+    from repro_torch.data import SyntheticTokens
+
+    return SyntheticTokens(cfg.vocab_size, batch=batch, seq_len=seq,
+                           family=cfg.family, d_model=cfg.d_model,
+                           encoder_seq=cfg.encoder_seq).batch_at(0)
+
+
+def loss_and_grads(model, cfg, batch, device):
+    """(loss, {name: gradient on the host}) of ``lm_loss``."""
+    from repro_torch.nn import lm_loss
+
+    loss, _ = lm_loss(model.trainable(), cfg, batch, device=device)
+    named = dict(model.named_parameters())
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return float(loss.detach()), {n: (torch.zeros_like(p) if g is None else g)
+                         .double().cpu() for (n, p), g in
+                         zip(named.items(), grads)}
+
+
+def expected_launches(cfg) -> tuple:
+    """K4's and K5's launches in one ``lm_loss`` forward and backward with
+    ``remat``: each checkpointed decoder layer launches in the forward and
+    again in its recompute, a leading dense layer and an encoder layer
+    once."""
+    scanned = cfg.n_layers - cfg.first_dense_layers
+    k4 = (2 * scanned + cfg.first_dense_layers + cfg.encoder_layers
+          if cfg.block_kind != "ssm" else 0)
+    k5 = 2 * scanned if cfg.block_kind in ("ssm", "hybrid") else 0
+    return k4, k5
+
+
+def cut_models() -> None:
+    """(b) every smoke config and hymba-1.5b at full width cut to 2
+    layers, float32, 2 x 256 tokens of ``SyntheticTokens``: ``lm_loss``
+    and every gradient leaf on cuda held to cpu (K4 and K5 launched as
+    ``expected_launches`` says on cuda), then one ``make_train_step`` with
+    ``microbatches=2`` held to one with ``microbatches=1`` on cuda (not for
+    MoE, whose capacity is per slice in the reference too)."""
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn import init_params, params_from_numpy, params_to_numpy
+    from repro_torch.train.optim import AdamWConfig, init_opt_state
+
+    ocfg = AdamWConfig(warmup_steps=1, total_steps=10)
+    for arch, label, cfg in (
+            *((a, "smoke config", get_smoke_config(a)) for a in ARCH_IDS),
+            (TRAIN["arch"], "full width cut to 2 layers", dataclasses.replace(
+                get_config(TRAIN["arch"]), n_layers=2))):
+        tree = params_to_numpy(init_params(cfg, seed=0, device="cpu"))
+        batch = training_batch(cfg, TRAIN["cut_batch"], TRAIN["cut_seq"])
+        gpu = params_from_numpy(tree, cfg, dtype=torch.float32)
+        cpu = params_from_numpy(tree, cfg, device="cpu", dtype=torch.float32)
+        fa.reset_launches()
+        ssd.reset_launches()
+        (l_g, g_g), t_gpu = sync_time(lambda: loss_and_grads(gpu, cfg, batch,
+                                                             None))
+        launches = (fa.LAUNCHES["flash_attention"],
+                    ssd.LAUNCHES["ssd_intra_chunk"])
+        if launches != expected_launches(cfg):
+            raise AssertionError(f"training {arch} ({label}): K4/K5 launched"
+                                 f" {launches}, expected "
+                                 f"{expected_launches(cfg)}")
+        t = time.perf_counter()
+        l_c, g_c = loss_and_grads(cpu, cfg, batch, "cpu")
+        t_cpu = time.perf_counter() - t
+        if not abs(l_g - l_c) <= LOSS_RTOL * abs(l_c) or not np.isfinite(l_g):
+            raise AssertionError(f"training {arch} ({label}): loss cuda "
+                                 f"{l_g} vs cpu {l_c}")
+        worst = 0.0
+        for name, w in g_c.items():
+            err = float(torch.linalg.norm(g_g[name] - w))
+            scale = float(torch.linalg.norm(w))
+            if not err <= LEAF_RTOL * scale + LEAF_ATOL:
+                raise AssertionError(f"training {arch} ({label}): gradient "
+                                     f"{name} cuda vs cpu |diff| {err}, "
+                                     f"|want| {scale}")
+            worst = max(worst, err / max(scale, LEAF_ATOL / LEAF_RTOL))
+        line = (f"training (b) {arch} {label} ({cfg.n_layers} layers, d_model"
+                f" {cfg.d_model}, {cfg.family}), float32, "
+                f"{TRAIN['cut_batch']} x {TRAIN['cut_seq']} tokens: loss cuda "
+                f"{l_g:.6f} cpu {l_c:.6f}, worst leaf relative L2 {worst:.3g}"
+                f" (limit {LEAF_RTOL} + {LEAF_ATOL}); K4/K5 launches "
+                f"{launches}; cuda {t_gpu:.3f} s, cpu {t_cpu:.3f} s")
+        del cpu, g_c, g_g
+        if not cfg.n_experts:
+            models = [params_from_numpy(tree, cfg, dtype=torch.float32)
+                      for _ in range(2)]
+            outs = []
+            for mb, model in zip((1, 2), models):
+                step = make_train_step(cfg, ocfg, microbatches=mb)
+                _, state, met = step(model, init_opt_state(model), batch)
+                outs.append({k: float(v) for k, v in met.items()})
+            lr = outs[0]["lr"]
+            for k in ("loss", "grad_norm"):
+                if not abs(outs[1][k] - outs[0][k]) <= 1e-4 * abs(outs[0][k]):
+                    raise AssertionError(f"training {arch}: microbatches 2 "
+                                         f"{k} {outs[1][k]} vs 1 "
+                                         f"{outs[0][k]}")
+            # at step 1 AdamW moves an element by lr times the sign of its
+            # gradient, which a rounding flips for a near-zero gradient
+            diff = max(float(((a - b).abs() - 1e-5 * b.abs()).max())
+                       for a, b in zip(models[1].parameters(),
+                                       models[0].parameters()))
+            if not diff <= 2 * lr:
+                raise AssertionError(f"training {arch}: microbatches 2 vs 1 "
+                                     f"parameters apart by {diff} (limit "
+                                     f"2 lr = {2 * lr})")
+            line += (f"; train step microbatches 2 vs 1: loss "
+                     f"{outs[1]['loss']:.6f} / {outs[0]['loss']:.6f}, grad "
+                     f"norm {outs[1]['grad_norm']:.5g} / "
+                     f"{outs[0]['grad_norm']:.5g}, parameters within 2 lr")
+            del models
+        log(line)
+        del gpu
+    torch.cuda.empty_cache()
+
+
+def resume_bitwise() -> None:
+    """(c) tinyllama-1.1b's smoke config through the port's ``Trainer`` on
+    the card under ``torch.use_deterministic_algorithms(True)``: 6 steps
+    straight, and 3 steps, a crash, then 3 resumed from the checkpoint;
+    the parameters equal bit for bit."""
+    import os
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.train import AdamWConfig, TrainConfig, Trainer
+
+    r = TRAIN["resume"]
+    cfg = get_smoke_config(r["arch"])
+    data = SyntheticTokens(cfg.vocab_size, batch=r["batch"],
+                           seq_len=r["seq"])
+
+    def train(steps, ckpt_dir):
+        t = Trainer(cfg, TrainConfig(steps=steps, ckpt_every=r["crash"],
+                                     ckpt_dir=ckpt_dir, log_every=1),
+                    AdamWConfig(warmup_steps=2, total_steps=10))
+        return t.run(data)
+
+    # cuBLAS is deterministic on one stream; torch asks for this setting
+    # before it lets a product run under deterministic algorithms
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            full, t_full = sync_time(lambda: train(r["steps"], f"{d}/a"))
+            train(r["crash"], f"{d}/b")
+            resumed, t_res = sync_time(lambda: train(r["steps"], f"{d}/b"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    diff = [n for (n, a), (_, b) in zip(full["params"].named_parameters(),
+                                        resumed["params"].named_parameters())
+            if not torch.equal(a, b)]
+    if diff or [h["step"] for h in resumed["history"]] != list(
+            range(r["crash"], r["steps"])):
+        raise AssertionError(f"crash-resume on the card: parameters differ "
+                             f"in {diff}; resumed steps "
+                             f"{[h['step'] for h in resumed['history']]}")
+    log(f"training (c) crash-resume on the card, deterministic algorithms: "
+        f"{r['arch']} smoke config, {r['batch']} x {r['seq']} tokens, "
+        f"{r['steps']} steps straight ({t_full:.3f} s) equal 3 + crash + 3 "
+        f"resumed ({t_res:.3f} s) bit for bit in all "
+        f"{sum(1 for _ in full['params'].parameters())} parameter leaves; "
+        f"losses {[round(h['loss'], 6) for h in full['history']]}")
+
+
+def train_split_ms(model, cfg, opt_state, batch, ocfg) -> dict:
+    """One training step split by CUDA events: ``lm_loss``'s forward, the
+    backward (``torch.autograd.grad``, the layers' recompute in it) and
+    the AdamW update, in ms."""
+    from repro_torch.nn import lm_loss
+    from repro_torch.train.optim import adamw_update
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss, _ = lm_loss(model, cfg, batch)
+    ev[1].record()
+    named = dict(model.named_parameters())
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    ev[2].record()
+    adamw_update(model, grads, opt_state, ocfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {k: ev[i].elapsed_time(ev[i + 1])
+            for i, k in enumerate(("forward", "backward", "optimizer"))}
+
+
+def k4_train_figures(fa, q, k, v) -> dict:
+    """At one training call's shape: K4's forward launch, its torch-op
+    backward, and SDPA's forward and forward + backward (with
+    ``enable_gqa``), CUDA-event ms."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=q.device).manual_seed(0)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    out = fa._flash_attention_cuda(q, k, v, True)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dt = dout.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        torch.autograd.grad(o, (qt, kt, vt), dt)
+
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: fa._flash_attention_cuda(q, k, v, True), 5)
+        bwd = cuda_ms(lambda: fa.flash_attention_backward(q, k, v, out, dout,
+                                                          True), 3)
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 5)
+    return {"k4_fwd_ms": fwd, "k4_bwd_ms": bwd, "sdpa_fwd_ms": sdpa,
+            "sdpa_fwd_bwd_ms": cuda_ms(sdpa_fwd_bwd, 3)}
+
+
+def k5_train_figures(ssd, dtx, Bm, Cm, cumA) -> dict:
+    """At one training call's shape: K5's forward launch and its torch-op
+    backward, CUDA-event ms."""
+    G1, h, q, p = dtx.shape
+    n = Bm.shape[-1]
+    gen = torch.Generator(device=dtx.device).manual_seed(0)
+    gy = torch.randn(G1 * h, q, p, generator=gen, device=dtx.device)
+    gs = torch.randn(G1 * h, n, p, generator=gen, device=dtx.device)
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: ssd._ssd_intra_chunk_cuda(
+            dtx, Bm, Cm, cumA, G1 * h, h, q, n, p), 5)
+        bwd = cuda_ms(lambda: ssd.ssd_intra_chunk_backward(
+            dtx, Bm, Cm, cumA, gy, gs), 3)
+    return {"k5_fwd_ms": fwd, "k5_bwd_ms": bwd}
+
+
+def hymba_training() -> dict:
+    """(d) hymba-1.5b as published (32 layers, d_model 1600, 1,640,144,000
+    parameters; 1,640,872,320 tensor elements) in bf16 with float32 AdamW moments, ``init_params(seed=0)``,
+    ``make_train_step`` with ``remat``, on one fixed ``SyntheticTokens``
+    batch of 2 x 4096 tokens: a warm-up step, then 8 timed steps with K4's
+    and K5's counts set to 0 just before (each launched forward and in the
+    recompute, 2 x 32 a step); one step split into forward, backward and
+    optimizer; one step with every K4 and K5 input captured and held to
+    the plain versions; K4 and K5 forward beside their torch-op backwards
+    and SDPA; one profiled step.  Returns the ``train`` figures of K4's and
+    K5's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn import init_params
+    from repro_torch.train.optim import AdamWConfig, init_opt_state
+
+    cfg = get_config(TRAIN["arch"])
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    model, t_init = sync_time(lambda: init_params(cfg, seed=0))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_state = init_opt_state(model)
+    ocfg = AdamWConfig(**TRAIN["opt"])
+    step_fn = make_train_step(cfg, ocfg)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             training_batch(cfg, B, S).items()}
+    tokens = B * S
+    _, t_warm = sync_time(lambda: step_fn(model, opt_state, batch))
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    ssd.reset_launches()
+    walls, mets = [], []
+    for _ in range(steps):
+        (_, opt_state, met), w = sync_time(
+            lambda: step_fn(model, opt_state, batch))
+        walls.append(w)
+        mets.append(met)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {**fa.LAUNCHES, **ssd.LAUNCHES}
+    want = steps * 2 * cfg.n_layers
+    if launches["flash_attention"] != want or launches[
+            "ssd_intra_chunk"] != want or launches["flash_attention_tc"] \
+            != want:
+        raise AssertionError(f"hymba training launched {launches} in "
+                             f"{steps} steps, expected {want} of K4 (all "
+                             f"on the tensor cores) and of K5")
+    losses = [float(m["loss"]) for m in mets]
+    norms = [float(m["grad_norm"]) for m in mets]
+    if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"hymba training: losses {losses}, grad norms "
+                             f"{norms}")
+    med = float(np.median(walls))
+    attn_flops = 6 * cfg.n_layers * cfg.n_heads * cfg.head_dim * S * tokens
+    model_flops = 6 * n_params * tokens + attn_flops
+    mfu = model_flops / med / BF16_FLOPS
+    log(f"training (d) {cfg.name} as published: {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_params()} parameters ({n_params} "
+        f"with the norms and SSM scalars, the N of 6 N), bf16 weights with "
+        f"float32 AdamW moments (lr {ocfg.lr}, warm-up {ocfg.warmup_steps}),"
+        f" remat, init_params(seed=0) {t_init:.2f} s; {B} x {S} tokens a "
+        f"step, warm-up step {t_warm:.3f} s; {steps} steps: wall median "
+        f"{med:.4f} s (min {min(walls):.4f}, max {max(walls):.4f}), "
+        f"{tokens / med:.0f} training tokens/s; model flops a step "
+        f"{model_flops:.4g} (6 N tokens + causal attention "
+        f"{attn_flops:.4g}), {100 * mfu:.2f} % of 989 TFLOP/s bf16; "
+        f"max_memory_allocated {peak} bytes; K4/K5 launches {launches} "
+        f"({want} each = {steps} steps x 2 x {cfg.n_layers}: forward and "
+        f"recompute); losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]}")
+    split = train_split_ms(model, cfg, opt_state, batch, ocfg)
+    log(f"training (d) one step split by CUDA events: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in split.items()))
+    with spy_ops(("flash_attention", "ssd_intra_chunk")) as captured:
+        fa.reset_launches()
+        ssd.reset_launches()
+        _, opt_state, _ = step_fn(model, opt_state, batch)
+        torch.cuda.synchronize()
+        step_launches = {**fa.LAUNCHES, **ssd.LAUNCHES}
+    out = {}
+    for name, err_of, figs_of in (
+            ("flash_attention",
+             lambda a, kw: k4_err(fa, *a, kw.get("causal", True)),
+             lambda a, kw: k4_call_figures(fa, *a, kw.get("causal", True))),
+            ("ssd_intra_chunk", lambda a, kw: k5_err(ssd, *a),
+             lambda a, kw: k5_call_figures(ssd, *a))):
+        calls = captured[name]
+        with torch.no_grad():
+            errs = [err_of(a, kw) for a, kw in calls]
+            figs = [figs_of(a, kw) for a, kw in calls]
+        total = {k: sum(f[k] for f in figs) for k in figs[0]
+                 if k not in ("bound_by",)}
+        out[name] = dict(launches=launches[name], calls_a_step=len(calls),
+                         step_launches=step_launches[name],
+                         max_abs_err=max(errs), ms=total["ms"],
+                         kernel_ms=total["kernel_ms"],
+                         plain_ms=total["plain_ms"],
+                         library_ms=total.get("library_ms"),
+                         bound_ms=total["bound_ms"],
+                         bound_by=figs[0]["bound_by"],
+                         inputs=[list(t.shape) for t in calls[0][0]])
+        log(f"training (d) {name}: {len(calls)} calls in one step (inputs "
+            f"{out[name]['inputs']}), every one held to its plain version "
+            f"(max abs err {max(errs):.3g}); summed wrapper {total['ms']:.3f}"
+            f" ms, launch alone {total['kernel_ms']:.3f} ms, plain "
+            f"{total['plain_ms']:.3f} ms, library "
+            + (f"{total['library_ms']:.3f} ms" if "library_ms" in total
+               else "none")
+            + f", bound {total['bound_ms']:.3f} ms ({figs[0]['bound_by']})")
+    a4, _ = captured["flash_attention"][0]
+    a5, _ = captured["ssd_intra_chunk"][0]
+    f4 = k4_train_figures(fa, *a4)
+    f5 = k5_train_figures(ssd, *a5)
+    del captured
+    out["flash_attention"].update(f4)
+    out["ssd_intra_chunk"].update(f5)
+    log(f"training (d) K4 at {list(a4[0].shape)} / {list(a4[1].shape)} bf16 "
+        f"causal: forward launch {f4['k4_fwd_ms']:.3f} ms, torch-op backward"
+        f" {f4['k4_bwd_ms']:.3f} ms; SDPA forward {f4['sdpa_fwd_ms']:.3f} ms,"
+        f" forward + backward {f4['sdpa_fwd_bwd_ms']:.3f} ms; K5 at "
+        f"{list(a5[0].shape)}: forward launch {f5['k5_fwd_ms']:.3f} ms, "
+        f"torch-op backward {f5['k5_bwd_ms']:.3f} ms")
+    rows = device_share(lambda: step_fn(model, opt_state, batch))
+    dev_ms = {name: sum(us for us, _, key in rows if tag in key) / 1e3
+              if rows else None
+              for name, tag in (("flash_attention", "flash_fwd"),
+                                ("ssd_intra_chunk", "ssd_intra"))}
+    for name in out:
+        out[name].update(device_ms=dev_ms[name], step_median_s=med,
+                         tokens_per_s=tokens / med, mfu=mfu,
+                         peak_bytes=peak, split_ms=split)
+    log(f"training (d) kernel device time in the profiled step {dev_ms} ms; "
+        f"card {nvidia_smi('name,power.limit')}")
+    del model, opt_state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def training() -> dict:
+    """Phase 16: (a) backward parity, (b) cut models cuda against cpu,
+    (c) crash-resume on the card, (d) hymba-1.5b training at full width;
+    each model freed before the next.  Returns K4's and K5's ``train``
+    figures."""
+    backward_parity()
+    cut_models()
+    resume_bitwise()
+    return hymba_training()
+
+
+# -- phase 17: K4 and K5 figures --------------------------------------------------
 
 def k4_call_figures(fa, q, k, v, causal) -> dict:
     """CUDA-event times of one K4 call (the wrapper, the launch alone, the
@@ -3968,6 +4553,9 @@ def main() -> int:
     del model_run                   # hymba's captured K4/K5 inputs
     torch.cuda.empty_cache()
     model_rows[0]["rest_of_nn"] = rest_of_nn()
+    trained = training()
+    for row in model_rows:          # K4 and K5: their launches and summed
+        row["train"] = trained[row["name"]]   # figures training hymba
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
     for row in rows:        # K1 and K2: their calls on the registry sweep,
         row["registry"] = registry[row["name"]]   # on delta re-pricing, on

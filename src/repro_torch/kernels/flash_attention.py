@@ -15,6 +15,14 @@
 :func:`flash_attention_plain`
     The reference's oracle ``flash_attention_ref``: an einsum in float32,
     a softmax, an einsum, cast to ``q``'s dtype.
+:class:`FlashAttention` and :func:`flash_attention_autograd`
+    K4 under autograd: the forward is :func:`flash_attention` (K4's launch
+    on CUDA tensors, the plain version on CPU tensors), the backward is
+    :func:`flash_attention_backward`, torch ops that recompute the softmax
+    from the saved ``q``, ``k`` and ``v`` in float32, one block of queries
+    at a time.  There is no backward kernel because the TPU kernel has
+    none: the reference trains through plain jnp attention, and its Pallas
+    kernel is its production forward only.
 
 Counterpart of ``repro.kernels.flash_attention``, whose Pallas kernel also
 needs ``S`` to be a multiple of its 128-row blocks; that is a limit of its
@@ -155,3 +163,86 @@ def _flash_attention_cuda(q, k, v, causal: bool) -> torch.Tensor:
     LAUNCHES["flash_attention"] += 1
     LAUNCHES["flash_attention_tc"] += int(tc)
     return out
+
+
+#: Score elements (float32) a block of queries of the backward holds at
+#: once in each of its four ``[B, KH, rep, rows, S]`` temporaries.
+BACKWARD_BLOCK_ELEMS = 1 << 26
+
+
+def backward_rows(B: int, H: int, S: int) -> int:
+    """Queries a block of :func:`flash_attention_backward` takes: as many
+    as keep ``B * H * rows * S`` within :data:`BACKWARD_BLOCK_ELEMS`, at
+    least 1 and at most ``S``."""
+    return max(1, min(S, BACKWARD_BLOCK_ELEMS // max(1, B * H * S)))
+
+
+def flash_attention_backward(q, k, v, out, dout, causal: bool = True):
+    """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k,
+    v)``, given its output ``out`` and the output's gradient ``dout``.
+
+    Torch ops in float32, one block of :func:`backward_rows` queries at a
+    time, so no ``[B, H, S, S]`` tensor is live whole: the scores and
+    softmax ``P`` of the block are recomputed from ``q`` and ``k`` (under
+    the causal mask only the keys up to the block's last query), then
+    ``dV += P^T dO``, ``dS = P * (dO V^T - rowsum(dO * O))``, ``dQ = dS K
+    scale`` and ``dK += dS^T Q scale``, each kv head's gradients summed
+    over its group of query heads.  Each gradient has its input's dtype.
+    """
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    rep = H // KH
+    scale = 1.0 / D ** 0.5
+    kf, vf = k.float(), v.float()
+    dq = torch.empty(B, S, H, D, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(B, S, KH, D, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    # rowsum(dO * O): [B, KH, rep, S]
+    delta = (dout.float() * out.float()).sum(-1).reshape(
+        B, S, KH, rep).permute(0, 2, 3, 1)
+    rows = backward_rows(B, H, S)
+    pos = torch.arange(S, device=q.device)
+    for s0 in range(0, S, rows):
+        s1 = min(S, s0 + rows)
+        ke = s1 if causal else S
+        qb = q[:, s0:s1].float().reshape(B, s1 - s0, KH, rep, D)
+        dob = dout[:, s0:s1].float().reshape(B, s1 - s0, KH, rep, D)
+        kb, vb = kf[:, :ke], vf[:, :ke]
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qb, kb) * scale
+        if causal:
+            s = s.masked_fill(pos[s0:s1, None] < pos[None, :ke], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        dv[:, :ke] += torch.einsum("bhrqk,bqhrd->bkhd", p, dob)
+        ds = torch.einsum("bqhrd,bkhd->bhrqk", dob, vb)
+        ds = p * (ds - delta[..., s0:s1, None])
+        dq[:, s0:s1] = torch.einsum("bhrqk,bkhd->bqhrd", ds, kb).reshape(
+            B, s1 - s0, H, D) * scale
+        dk[:, :ke] += torch.einsum("bhrqk,bqhrd->bkhd", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """K4 under autograd: :func:`flash_attention` forward (the launch on
+    CUDA tensors, counted in :data:`LAUNCHES`; the plain version on CPU
+    tensors), :func:`flash_attention_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool = True):
+        out = flash_attention(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, out, dout, ctx.causal),
+                None)
+
+
+def flash_attention_autograd(q, k, v, causal: bool = True) -> torch.Tensor:
+    """:func:`flash_attention` that autograd differentiates
+    (:class:`FlashAttention`); under ``torch.no_grad`` it is the same one
+    launch."""
+    return FlashAttention.apply(q, k, v, causal)

@@ -1,12 +1,18 @@
 """Public entry points of the port's kernels, the counterpart of
 ``repro.kernels.ops``: flash attention (K4), the SSD intra-chunk step (K5)
 and the block-ELL SpMV (K3), plus the shape-checked ``mha_flash``.
+
+``flash_attention`` and ``ssd_intra_chunk`` here are K4 and K5 under
+autograd (``flash_attention.FlashAttention`` and ``ssd.SsdIntraChunk``):
+the kernel's launch forward and a torch-op backward, so the training step
+runs the same launches as serving; under ``torch.no_grad`` each is the
+plain wrapper's one launch.
 """
 from __future__ import annotations
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention_autograd as flash_attention
 from .spmv_ell import csr_to_block_ell, spmv_block_ell
-from .ssd import ssd_intra_chunk
+from .ssd import ssd_intra_chunk_autograd as ssd_intra_chunk
 
 __all__ = ["flash_attention", "ssd_intra_chunk", "spmv_block_ell",
            "csr_to_block_ell", "mha_flash"]

@@ -19,6 +19,13 @@ For each program g (one batch row, chunk and head) of a chunked SSD scan::
     lo``, ``hi hi + hi lo + lo hi``), which keeps it float32-accurate.
 :func:`ssd_intra_chunk_plain`
     The reference's oracle ``ssd_intra_chunk_ref`` in float32 einsums.
+:class:`SsdIntraChunk` and :func:`ssd_intra_chunk_autograd`
+    K5 under autograd: the forward is :func:`ssd_intra_chunk` (K5's launch
+    on CUDA tensors, the plain version on CPU tensors), the backward is
+    :func:`ssd_intra_chunk_backward`, torch ops on the saved inputs.  There
+    is no backward kernel because the TPU kernel has none: the reference
+    trains through its plain jnp SSD, and its Pallas kernel is its
+    production forward only.
 
 Every input is either ``[G, q, x]`` as in the reference, or ``[G1, h, q, x]``
 with ``G = G1 * h`` (program ``g = g1 * h + head``) and any strides.  The
@@ -159,3 +166,67 @@ def _ssd_intra_chunk_cuda(dtx, Bm, Cm, cumA, G, heads, q, n, p):
         LAUNCHES["ssd_intra_chunk"] += 1
         LAUNCHES["ssd_intra_chunk_tc"] += 1
     return y, s
+
+
+def ssd_intra_chunk_backward(dtx, Bm, Cm, cumA, dy, dS):
+    """Gradients ``(d dtx, dBm, dCm, d cumA)`` of :func:`ssd_intra_chunk`
+    at its inputs, given the gradients ``dy`` [G, q, p] and ``dS`` [G, n,
+    p] of its outputs; torch ops in float32.
+
+    With ``L[i,j] = exp(cumA_i - cumA_j)`` on and below the diagonal (else
+    0), ``scores = (C B^T) * L``, ``y = scores dtx`` and ``S_c = B^T (seg *
+    dtx)``, ``seg_j = exp(cumA_last - cumA_j)``: ``dscores = dy dtx^T``,
+    ``d dtx = scores^T dy + seg * (B dS)``, ``dC = (dscores * L) B``, ``dB
+    = (dscores * L)^T C + seg * (dtx dS^T)``, and ``d cumA`` from ``M =
+    dscores * scores`` (row sums less column sums) and ``r = seg * rowsum((B
+    dS) * dtx)`` (less ``r``, its sum added at the last position).  Each
+    gradient has the shape of its input, so a ``B`` or ``C`` expanded over
+    the heads with stride 0 gets a gradient a head, which the expand's own
+    backward sums; no input is written."""
+    d4, b4, c4, a4 = (_as4(t) for t in (dtx, Bm, Cm, cumA))
+    G1, heads, q, p = d4.shape
+    n = b4.shape[-1]
+    dy4 = dy.reshape(G1, heads, q, p).float()
+    ds4 = dS.reshape(G1, heads, n, p).float()
+    cum = a4[..., 0]
+    mask = torch.ones(q, q, dtype=torch.bool, device=dtx.device).tril()
+    decay = torch.exp((cum[..., :, None] - cum[..., None, :])
+                      .masked_fill(~mask, -1e30))
+    scores = torch.einsum("ghin,ghjn->ghij", c4, b4) * decay
+    seg = torch.exp(cum[..., -1:] - cum)
+    dscores = torch.einsum("ghip,ghjp->ghij", dy4, d4)
+    bds = torch.einsum("ghjn,ghnp->ghjp", b4, ds4)
+    d_dtx = torch.einsum("ghij,ghip->ghjp", scores, dy4) + seg[..., None] * bds
+    dcb = dscores * decay
+    dC = torch.einsum("ghij,ghjn->ghin", dcb, b4)
+    dB = torch.einsum("ghij,ghin->ghjn", dcb, c4) + seg[..., None] \
+        * torch.einsum("ghjp,ghnp->ghjn", d4, ds4)
+    m = dscores * scores
+    r = seg * (bds * d4).sum(-1)
+    d_cum = m.sum(-1) - m.sum(-2) - r
+    d_cum[..., -1] += r.sum(-1)
+    return (d_dtx.reshape(dtx.shape), dB.reshape(Bm.shape),
+            dC.reshape(Cm.shape), d_cum.reshape(cumA.shape))
+
+
+class SsdIntraChunk(torch.autograd.Function):
+    """K5 under autograd: :func:`ssd_intra_chunk` forward (the launch on
+    CUDA tensors, counted in :data:`LAUNCHES`; the plain version on CPU
+    tensors), :func:`ssd_intra_chunk_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, dtx, Bm, Cm, cumA):
+        ctx.save_for_backward(dtx, Bm, Cm, cumA)
+        return ssd_intra_chunk(dtx, Bm, Cm, cumA)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, dS):
+        return ssd_intra_chunk_backward(*ctx.saved_tensors, dy, dS)
+
+
+def ssd_intra_chunk_autograd(dtx, Bm, Cm, cumA):
+    """:func:`ssd_intra_chunk` that autograd differentiates
+    (:class:`SsdIntraChunk`); under ``torch.no_grad`` it is the same one
+    launch."""
+    return SsdIntraChunk.apply(dtx, Bm, Cm, cumA)

@@ -1,13 +1,16 @@
 """The language model of the port: dense, MoE, SSM and hybrid decoders,
 whisper's encoder-decoder and qwen2-vl's patch frontend, for prefill,
-decode and the full-sequence forward (counterpart of ``repro.nn``)."""
+decode, the full-sequence forward and the training loss (counterpart of
+``repro.nn``)."""
 from .config import ArchConfig
-from .model import (Model, cache_shapes, decode_step, forward_logits,
-                    init_cache, init_params, param_shapes, params_from_numpy,
-                    params_to_numpy, prefill)
+from .model import (Model, cache_shapes, decode_step, forward_hidden,
+                    forward_logits, init_cache, init_params, lm_loss,
+                    param_shapes, params_from_numpy, params_to_numpy,
+                    prefill)
 
 __all__ = [
     "ArchConfig", "Model", "param_shapes", "init_params",
-    "params_from_numpy", "params_to_numpy", "forward_logits", "decode_step",
-    "prefill", "init_cache", "cache_shapes",
+    "params_from_numpy", "params_to_numpy", "forward_logits",
+    "forward_hidden", "lm_loss", "decode_step", "prefill", "init_cache",
+    "cache_shapes",
 ]

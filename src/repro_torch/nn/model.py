@@ -20,11 +20,20 @@ the reference's leaves out two parts (ROADMAP §3, "Faults of the reference,
 mended in the port"): the leading dense layers' k/v, and under ``kv_quant``
 the int8 k/v with their scales, quantised as decode quantises.
 
+The training objective is :func:`lm_loss` over :func:`forward_hidden`:
+next-token cross-entropy over chunks of the sequence (each chunk's logits
+recomputed in the backward pass) plus the MoE load-balance loss, with each
+decoder layer checkpointed (``torch.utils.checkpoint``, non-reentrant)
+under ``remat``, as the reference wraps its scanned layer in
+``jax.checkpoint``.  K4 and K5 run under autograd (``kernels.ops``), so a
+training step launches them in the forward and again in each layer's
+recompute.  :meth:`Model.trainable` lets the parameters require grad; the
+inference entry points run under ``torch.no_grad``.
+
 Every entry point takes ``device=None``, meaning CUDA, and raises without a
 CUDA device; the CPU runs only when asked for with ``device="cpu"``.  The
-training objective (``lm_loss``, ``forward_hidden``) waits for ROADMAP
-queue item 6, the dry-run's abstract trees (``abstract_params``,
-``abstract_cache``) for item 14.
+dry-run's abstract trees (``abstract_params``, ``abstract_cache``) wait for
+ROADMAP queue item 14.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -160,7 +170,8 @@ class Model(nn.Module):
     ``xattn``, ``ln3``) a layer, empty where the config has none;
     ``enc_final_norm`` and ``frontend_proj`` where the config has an
     encoder or a frontend (else an empty dict and None).  No parameter
-    requires grad.  Call it on tokens for :func:`forward_logits`."""
+    requires grad until :meth:`trainable` (which the training step calls).
+    Call it on tokens for :func:`forward_logits`."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__()
@@ -179,6 +190,10 @@ class Model(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def trainable(self) -> "Model":
+        """Let every parameter require grad; returns the model."""
+        return self.requires_grad_(True)
 
     def forward(self, tokens, device=None):
         return forward_logits(self, self.cfg, tokens, device=device)[0]
@@ -265,27 +280,58 @@ def params_from_numpy(tree: dict, cfg: ArchConfig, device=None,
     return _model_from_leaves(cfg, make)
 
 
+def leaf_path(name: str) -> tuple[tuple, int | None]:
+    """The reference's tree path of the :class:`Model` parameter ``name``
+    (``"layers.3.attn.wq"`` -> ``("layers", "attn", "wq")``) and its layer
+    in the stack (3; None outside the stacks)."""
+    parts = tuple(name.split("."))
+    if parts[0] in STACKS:
+        return (parts[0],) + parts[2:], int(parts[1])
+    return parts, None
+
+
+def named_to_tree(named: dict) -> dict:
+    """Arrays keyed by :class:`Model` parameter names as the reference's
+    tree: nested dicts, a stack's layers stacked on axis 0 in layer
+    order."""
+    tree: dict = {}
+    stacked: dict = {}
+    for name, a in named.items():
+        path, i = leaf_path(name)
+        if i is not None:
+            stacked.setdefault(path, {})[i] = a
+            continue
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
+    for path, layers in stacked.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.stack([layers[i] for i in sorted(layers)])
+    return tree
+
+
+def named_from_tree(tree: dict, names) -> dict:
+    """The reference's tree (layers stacked on axis 0) as arrays keyed by
+    the parameter ``names``: each stacked leaf sliced at the name's
+    layer."""
+    out = {}
+    for name in names:
+        path, i = leaf_path(name)
+        a = tree
+        for k in path:
+            a = a[k]
+        out[name] = a if i is None else np.asarray(a)[i]
+    return out
+
+
 def params_to_numpy(model: Model) -> dict:
     """The model's parameters as the reference's tree: numpy arrays, layers
     stacked on axis 0 (bf16 leaves as float32, which holds them exactly)."""
-    def np_(t):
-        return t.detach().float().cpu().numpy()
-
-    tree = {"embed": np_(model.embed),
-            "final_norm": {k: np_(v) for k, v in model.final_norm.items()}}
-    if not model.cfg.tie_embeddings:
-        tree["lm_head"] = np_(model.lm_head)
-    for name in STACKS:
-        layers = getattr(model, name)
-        if len(layers):
-            tree[name] = {g: {k: np.stack([np_(lp[g][k]) for lp in layers])
-                              for k in d} for g, d in layers[0].items()}
-    if len(model.enc_final_norm):
-        tree["enc_final_norm"] = {k: np_(v) for k, v in
-                                  model.enc_final_norm.items()}
-    if model.frontend_proj is not None:
-        tree["frontend_proj"] = np_(model.frontend_proj)
-    return tree
+    return named_to_tree({name: p.detach().float().cpu().numpy()
+                          for name, p in model.named_parameters()})
 
 
 # ==================================================================== fwd ====
@@ -358,12 +404,28 @@ def _run_encoder(params: Model, cfg: ArchConfig, frames) -> torch.Tensor:
     return norm(x, params.enc_final_norm, cfg.norm_type, cfg.norm_eps)
 
 
+def _decoder_layer(x, lp, cfg: ArchConfig, positions, enc_out,
+                   collect: bool):
+    """One decoder layer: (x, its aux loss or None for a cross-attention
+    layer, its cache elements when ``collect``)."""
+    if cfg.cross_attention:
+        x, (k, v) = cross_block(x, lp, cfg, positions, enc_out)
+        return x, None, ({"k": k, "v": v} if collect else {})
+    return block_forward(x, lp, cfg, positions, collect_cache=collect)
+
+
+def _remat_layer(x, lp, cfg: ArchConfig, positions, enc_out):
+    return _decoder_layer(x, lp, cfg, positions, enc_out, False)[:2]
+
+
 def _run_layers(params: Model, cfg: ArchConfig, x, positions, enc_out,
-                collect: bool):
+                collect: bool, remat: bool = False):
     """The leading dense layers, then the decoder layers, over a full
     sequence.  Returns (x, aux summed over the layers, the dense layers'
     and the decoder layers' cache elements, a dict a layer, when
-    ``collect``)."""
+    ``collect``).  Under ``remat`` (and not ``collect``) each decoder
+    layer is checkpointed: its activations are recomputed in the backward
+    pass, as the reference's ``jax.checkpoint`` of its scanned layer."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     dense_cfg = _dense_view(cfg)
     dense_els, els = [], []
@@ -373,15 +435,32 @@ def _run_layers(params: Model, cfg: ArchConfig, x, positions, enc_out,
         aux = aux + a
         dense_els.append(el)
     for lp in params.layers:
-        if cfg.cross_attention:
-            x, (k, v) = cross_block(x, lp, cfg, positions, enc_out)
-            el = {"k": k, "v": v} if collect else {}
+        if remat and not collect:
+            x, a = checkpoint(_remat_layer, x, lp, cfg, positions, enc_out,
+                              use_reentrant=False)
+            el = {}
         else:
-            x, a, el = block_forward(x, lp, cfg, positions,
-                                     collect_cache=collect)
+            x, a, el = _decoder_layer(x, lp, cfg, positions, enc_out,
+                                      collect)
+        if a is not None:
             aux = aux + a
         els.append(el)
     return x, aux, dense_els, els
+
+
+def _hidden(params: Model, cfg: ArchConfig, dev, tokens, embeds, positions,
+            enc_frames, remat: bool):
+    """The full-sequence forward up to the final norm: (x [B, S, d],
+    aux)."""
+    x = _input(params, cfg, dev, tokens, embeds)
+    B, S = x.shape[:2]
+    positions = _positions(cfg, B, S, dev) if positions is None \
+        else _put(positions, dev)
+    enc_out = _run_encoder(params, cfg, _put(enc_frames, dev)) \
+        if cfg.encoder_layers else None
+    x, aux, _, _ = _run_layers(params, cfg, x, positions, enc_out,
+                               collect=False, remat=remat)
+    return norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps), aux
 
 
 @torch.no_grad()
@@ -396,16 +475,76 @@ def forward_logits(params: Model, cfg: ArchConfig, tokens=None, embeds=None,
     None).  ``aux`` is the MoE layers' load-balance loss, summed.
     """
     dev = _bind(params, device)
-    x = _input(params, cfg, dev, tokens, embeds)
-    B, S = x.shape[:2]
-    positions = _positions(cfg, B, S, dev) if positions is None \
-        else _put(positions, dev)
-    enc_out = _run_encoder(params, cfg, _put(enc_frames, dev)) \
-        if cfg.encoder_layers else None
-    x, aux, _, _ = _run_layers(params, cfg, x, positions, enc_out,
-                               collect=False)
-    x = norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps)
+    x, aux = _hidden(params, cfg, dev, tokens, embeds, positions, enc_frames,
+                     remat=False)
     return _unembed(params, cfg, x), aux
+
+
+def forward_hidden(params: Model, cfg: ArchConfig, tokens=None, embeds=None,
+                   positions=None, enc_frames=None, remat: bool = True,
+                   device=None):
+    """Full-sequence forward up to the final norm -> (x [B, S, d], aux),
+    differentiable (the inputs as :func:`forward_logits` takes them).
+    ``remat`` checkpoints each decoder layer."""
+    dev = _bind(params, device)
+    return _hidden(params, cfg, dev, tokens, embeds, positions, enc_frames,
+                   remat)
+
+
+def _xent_block(params: Model, cfg: ArchConfig, xc, tc, mc):
+    """Masked cross-entropy summed over one block of positions: logits in
+    the weights' dtype, then float32 for the log-sum-exp."""
+    lf = _unembed(params, cfg, xc).float()
+    lse = torch.logsumexp(lf, dim=-1)
+    tgt = lf.gather(-1, tc[..., None])[..., 0]
+    return torch.sum((lse - tgt) * mc)
+
+
+def _chunked_xent(params: Model, cfg: ArchConfig, x, targets, mask,
+                  chunk: int = 512):
+    """Mean cross-entropy over the masked positions without the whole
+    ``[B, S, V]`` logits: chunks of ``chunk`` positions, each checkpointed
+    (its logits recomputed in the backward pass), when ``chunk`` divides
+    ``S`` and is shorter; else one block, as in the reference."""
+    S = x.shape[1]
+    if S % chunk or S <= chunk:
+        tot = _xent_block(params, cfg, x, targets, mask)
+    else:
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, S, chunk):
+            sl = slice(i, i + chunk)
+            tot = tot + checkpoint(_xent_block, params, cfg, x[:, sl],
+                                   targets[:, sl], mask[:, sl],
+                                   use_reentrant=False)
+    return tot / mask.sum().clamp(min=1)
+
+
+def lm_loss(params: Model, cfg: ArchConfig, batch: dict, remat: bool = True,
+            aux_weight: float = 0.01, loss_chunk: int = 512, device=None):
+    """Next-token cross-entropy plus ``aux_weight`` times the MoE
+    load-balance loss -> (loss, {"nll", "aux"}), differentiable.
+
+    ``batch`` holds ``tokens`` [B, S] (targets the next token, the last
+    position masked out), or ``embeds`` [B, S, d], ``positions`` and
+    ``targets`` [B, S] (every position counted); ``frames`` [B, S_enc, d]
+    feed an encoder.  Arrays or tensors; they are put on ``device``.
+    """
+    dev = _bind(params, device)
+    batch = {k: _put(v, dev) for k, v in batch.items()}
+    x, aux = _hidden(params, cfg, dev, batch.get("tokens"),
+                     batch.get("embeds"), batch.get("positions"),
+                     batch.get("frames"), remat)
+    B, S = x.shape[:2]
+    if "targets" in batch:
+        targets = batch["targets"].long()
+        mask = torch.ones(B, S, dtype=torch.float32, device=dev)
+    else:
+        tokens = batch["tokens"].long()
+        targets = torch.cat([tokens[:, 1:], tokens.new_zeros(B, 1)], dim=1)
+        mask = torch.ones(B, S, dtype=torch.float32, device=dev)
+        mask[:, -1] = 0
+    nll = _chunked_xent(params, cfg, x, targets, mask, chunk=loss_chunk)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 # ================================================================= decode ====
