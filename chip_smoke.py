@@ -197,12 +197,30 @@ Phases, in order (any failure raises and the script exits non-zero):
    beside its torch-op backward and SDPA's forward and backward, and the
    device busy share of one profiled step; each model freed before the
    next;
-17. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
+17. the dry run and the layout: (a) the reference's three §Perf cells
+   (qwen3-moe-30b-a3b and qwen2-vl-72b x train_4k, qwen3-32b x decode_32k)
+   on the 16 x 16 pod, qwen3-moe-30b-a3b x train_4k on the 2 x 16 x 16
+   pod, and hymba-1.5b and whisper-small x train_4k on the 16 x 16 pod
+   (heads and vocab that do not divide the model axis), at full width as
+   published, each traced on a fake world of 256 or
+   512 ranks (``repro_torch.launch.dryrun``: DTensor layouts from
+   ``repro_torch.parallel``, the step run on ``meta`` tensors, every
+   collective recorded), its collectives priced by one K1 launch on the
+   card and again on the cpu (within rtol 1e-4 / atol 1e-6), the trace
+   seconds, collectives by kind, argument bytes and FLOPs a rank (against
+   the model estimate, within the reference's bounds for train cells)
+   printed; (b) on a real one-rank NCCL world, hymba-1.5b at full width
+   prefilled on 4 x 2048 tokens plainly and with its parameters laid out
+   on a 1 x 1 mesh under a ``ShardingContext``: logits and cache bit-equal,
+   32 K4 and 32 K5 launches in each; (c) deepseek-moe-16b's smoke config
+   checkpointed and restored with ``shardings`` onto that mesh, every leaf
+   bit-equal on the placements asked for;
+18. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
    (K1's and K2's rows add ``registry``, ``delta``, ``service``, ``exec``
    and ``verify``: their launches on phase 7's sweep, on phase 8, on phase
    9's cold query and reprice, on phase 10 and on phase 11's two checked
-   sweeps, and K1's ``collectives``, on phase 12, with their calls' times and
-   bound summed as below), worst error
+   sweeps, and K1's ``collectives`` and ``dryrun``, on phases 12 and 17,
+   with their calls' times and bound summed as below), worst error
    against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
    yardstick, each summed over every call the full-width run made, beside
@@ -215,7 +233,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    3xTF32"), and both their ``tc_launches`` and ``train`` (their launches
    and summed figures on phase 16's hymba training, with their torch-op
    backwards' times);
-18. the card's name and power limit as ``nvidia-smi`` reports them, then,
+19. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -2628,7 +2646,7 @@ def collective_pricing(ks, clock_hz, card=None) -> dict:
     return kernel_sums(ks, "collectives", n, cap, clock_hz, prof)
 
 
-# -- phase 17: kernel figures ------------------------------------------------
+# -- phase 18: kernel figures ------------------------------------------------
 
 def k2_chain_ops(ks, posted, arrival, bounds):
     """(ops of the longest region's serial chain, ops of all regions) of
@@ -3502,15 +3520,16 @@ def moe_layer_split(cfg, lp, xf) -> None:
     T = xf.shape[0]
     C = moe.capacity(T, cfg)
     p = lp["moe"]
-    gates, idx, _ = moe.route(xf, p["router"], cfg)
-    buf, plan = moe.dispatch(xf, idx, C, cfg.n_experts)
+    xg = xf[None]                    # one group of T tokens (D = 1)
+    gates, idx, _, _ = moe.route(xg, p["router"], cfg)
+    buf, plan = moe.dispatch(xg, idx, gates, C, cfg.n_experts)
     out = moe.experts(buf, p)
     shared = {k: p[f"shared_{k}"] for k in ("w1", "w3", "w2")}
     parts = {
-        "route": lambda: moe.route(xf, p["router"], cfg),
-        "dispatch": lambda: moe.dispatch(xf, idx, C, cfg.n_experts),
+        "route": lambda: moe.route(xg, p["router"], cfg),
+        "dispatch": lambda: moe.dispatch(xg, idx, gates, C, cfg.n_experts),
         "experts": lambda: moe.experts(buf, p),
-        "combine": lambda: moe.combine(out, gates, plan, T),
+        "combine": lambda: moe.combine(out, plan, T),
         "shared": lambda: mlp(xf, shared, "swiglu"),
         "whole": lambda: moe.moe_ffn(xf[None], p, cfg),
     }
@@ -3542,8 +3561,8 @@ def moe_layer_on_cpu(cfg, lp, xf) -> None:
     t = time.perf_counter()
     y_c, aux_c = moe.moe_ffn(xc[None], pc, cfg)
     t_c = time.perf_counter() - t
-    _, idx_g, _ = moe.route(x32, p32["router"], cfg)
-    _, idx_c, _ = moe.route(xc, pc["router"], cfg)
+    _, idx_g, _, _ = moe.route(x32[None], p32["router"], cfg)
+    _, idx_c, _, _ = moe.route(xc[None], pc["router"], cfg)
     if not torch.equal(idx_g.cpu(), idx_c):
         raise AssertionError(f"MoE layer routing differs on "
                              f"{int((idx_g.cpu() != idx_c).any(-1).sum())} "
@@ -3599,8 +3618,11 @@ def deepseek_full() -> dict:
         real = (moe.route, moe.dispatch)
 
         def route(xf, router, c):
+            # one group of the batch's tokens (D = 1): [1, T, d]
             out = real[0](xf, router, c)
-            routed.append({"aux": out[2], "x": None if routed else xf})
+            routed.append({"aux": moe.aux_loss(out[2], out[3],
+                                               xf.shape[0] * xf.shape[1], c),
+                           "x": None if routed else xf[0]})
             return out
 
         def dispatch(*args):
@@ -4384,7 +4406,208 @@ def training() -> dict:
     return hymba_training()
 
 
-# -- phase 17: K4 and K5 figures --------------------------------------------------
+# -- phase 17: the dry run, the layout on the card, the elastic restore ----------
+
+#: Phase 17's cells: the reference's three §Perf cells on the 16 x 16 pod
+#: and the MoE cell on the 2 x 16 x 16 pod, then the train cells of hymba
+#: and whisper, whose heads and vocab do not divide the model axis (the
+#: layout deals their (row, head) items out over it instead), all traced
+#: at full width as published.
+DRYRUN_CELLS = (("qwen3-moe-30b-a3b", "train_4k", False),
+                ("qwen2-vl-72b", "train_4k", False),
+                ("qwen3-32b", "decode_32k", False),
+                ("qwen3-moe-30b-a3b", "train_4k", True),
+                ("hymba-1.5b", "train_4k", False),
+                ("whisper-small", "train_4k", False))
+
+
+def dryrun_cells(ks, clock_hz, card=None) -> dict:
+    """Phase 17 (a): each of :data:`DRYRUN_CELLS` traced on a fake world
+    of 256 or 512 ranks (``trace_collectives``), its collectives priced by
+    ``price_step`` on the card (``card``, None = CUDA) with K1's count set
+    to 0 just before and every K1 input captured and held to its plain
+    version, and the same op list priced on the cpu: every
+    ``CollectiveCost`` field and the step totals within rtol 1e-4 / atol
+    1e-6.  Prints per cell the trace seconds, the count and per-rank bytes
+    of each kind of collective, argument bytes per rank, FLOPs per rank
+    against 6 (train) or 2 N_active tokens / ranks, and K1's launch and
+    time.  A train cell must have collectives and FLOPs within the
+    reference's bounds (0.3 for MoE, else 0.8, up to 6 times the model
+    estimate).  Returns K1's ``dryrun`` figures."""
+    from repro_torch.launch import dryrun
+
+    launches = {"segment_reduce": 0, "queue_walk": 0}
+    captured = {"segment_reduce": [], "queue_walk": []}
+    traced, priced = 0.0, None
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        art, ops = dryrun.trace_collectives(arch, shape, multi_pod)
+        traced += art["trace_s"]
+        priced, t_price, n, cap, _ = counted_kernels(
+            ks, lambda: dryrun.price_cell(art, ops, multi_pod, device=card))
+        cpu = dryrun.price_cell(art, ops, multi_pod, device="cpu")
+        if n["segment_reduce"] != 1:
+            raise AssertionError(f"{arch} x {shape}: {n} launches pricing, "
+                                 "want one K1")
+        for key in launches:
+            launches[key] += n[key]
+            captured[key] += cap[key]
+        got, ref = priced["comm_model"], cpu["comm_model"]
+        for a, b in zip(got["ops"], ref["ops"]):
+            if (a["kind"], a["count"]) != (b["kind"], b["count"]):
+                raise AssertionError(f"dry-run op {a} against {b}")
+            np.testing.assert_allclose(
+                [a[k] for k in b if isinstance(b[k], float)],
+                [b[k] for k in b if isinstance(b[k], float)],
+                rtol=RTOL, atol=ATOL, err_msg=f"{arch} {a['kind']}")
+        totals = ("naive_time", "transport", "queue", "contention",
+                  "model_time", "total_wire_bytes", "total_msgs")
+        np.testing.assert_allclose([got[k] for k in totals],
+                                   [ref[k] for k in totals],
+                                   rtol=RTOL, atol=ATOL,
+                                   err_msg=f"{arch} step totals")
+        ranks = int(np.prod(art["mesh_shape"]))
+        tokens = art["global_batch"] * (art["seq_len"] if art["kind"]
+                                        != "decode" else 1)
+        model = (6 if art["kind"] == "train" else 2) \
+            * art["n_active_params"] * tokens / ranks
+        flops = art["cost"]["flops_per_device"]
+        log(f"dry run {arch} x {shape} x {art['mesh']} ({ranks} ranks, "
+            f"{art['microbatches']} microbatches, one traced): trace "
+            f"{art['trace_s']:.2f} s, pricing {1e3 * t_price:.2f} ms with "
+            f"{n['segment_reduce']} K1 launch; argument bytes a rank "
+            f"{art['memory']['argument_bytes']}; FLOPs a rank {flops:.6g} "
+            f"= {flops / model:.4f} x the model estimate {model:.6g}; "
+            f"bytes a rank (unfused) {art['cost']['bytes_per_device']:.6g}")
+        for kind, c in sorted(art["collectives"].items()):
+            log(f"  {kind:15s} {int(c['ops']):6d} ops, {c['bytes']:.6g} bytes "
+                "a rank")
+        if art["kind"] == "train":
+            if not art["collectives"]:
+                raise AssertionError(f"{arch} x {shape}: no collectives")
+            lo = 0.3 if "moe" in arch else 0.8
+            if not lo * model < flops < 6 * model:
+                raise AssertionError(f"{arch} x {shape}: FLOPs a rank "
+                                     f"{flops:.4g} outside ({lo}, 6) x "
+                                     f"{model:.4g}")
+    log(f"dry run: the {len(DRYRUN_CELLS)} cells traced in {traced:.2f} s")
+    prof = device_share(lambda: dryrun.price_cell(art, ops, multi_pod,
+                                                  device=card))
+    out = kernel_sums(ks, "dry run", launches, captured, clock_hz, prof)
+    out["segment_reduce"]["trace_s"] = traced
+    return out
+
+
+def layout_on_the_card() -> None:
+    """Phase 17 (b) and (c), on a real world of one rank (NCCL) with a 1 x
+    1 ``("data", "model")`` mesh on the card, opened after the fake worlds
+    closed.  (b) hymba-1.5b at full width (bf16 random weights from
+    ``init_params(seed=0)``), 4 seeded prompts of 2048 tokens through
+    ``prefill`` without a layout, then its parameters laid out by
+    ``param_pspecs`` and the same prefill under a ``ShardingContext``: the
+    logits and every cache leaf bit-equal, K4 and K5 launched 32 times
+    each in both (counts set to 0 just before each).  (c) deepseek-moe-
+    16b's smoke config (leading dense layers, experts, FSDP layouts)
+    written as a checkpoint and restored with ``shardings`` onto the mesh:
+    every leaf bit-equal and every placement the one asked for."""
+    import tempfile
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import configs
+    from repro_torch.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.mesh import make_mesh, one_rank_world
+    from repro_torch.nn import model as M
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel import sharding
+
+    cfg = configs.get_config(HYMBA["arch"])
+    B, S, max_seq = HYMBA["batch"], HYMBA["prompt"], HYMBA["max_seq"]
+    model = M.init_params(cfg, seed=0)
+    tokens = torch.from_numpy(
+        prompt_inputs(cfg, B, S, seed=17)["tokens"]).cuda()
+
+    def counted(fn):
+        fa.reset_launches()
+        ssd.reset_launches()
+        out, wall = sync_time(fn)
+        return out, wall, (fa.LAUNCHES["flash_attention"],
+                           ssd.LAUNCHES["ssd_intra_chunk"])
+
+    (logits, cache), t_plain, n_plain = counted(
+        lambda: M.prefill(model, cfg, tokens, max_seq=max_seq))
+    with one_rank_world("nccl"):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        plan = sharding.make_mesh_plan(mesh)
+        specs = sharding.param_pspecs(cfg, plan)
+        _, t_dist = sync_time(lambda: sharding.distribute_model(
+            model, specs, mesh))
+        tok = sharding.place(tokens, mesh, sharding.batch_pspecs(plan,
+                                                                 tokens))
+        ctx = pctx.ShardingContext(mesh=mesh, dp_axes=plan.dp_axes)
+
+        def laid_out():
+            with implicit_replication(), pctx.use(ctx):
+                return M.prefill(model, cfg, tok, max_seq=max_seq)
+
+        (l2, c2), t_layout, n_layout = counted(laid_out)
+        want = (cfg.n_layers, cfg.n_layers)
+        if n_plain != want or n_layout != want:
+            raise AssertionError(f"K4/K5 launches {n_plain} plain, "
+                                 f"{n_layout} under the layout; want {want}")
+        if not torch.equal(l2.full_tensor(), logits):
+            raise AssertionError("logits under the 1 x 1 layout differ")
+        for g, leaves in cache.items():
+            for k, v in leaves.items():
+                if not torch.equal(c2[g][k].full_tensor(), v):
+                    raise AssertionError(f"cache {g}/{k} under the layout "
+                                         "differs")
+        log(f"layout on the card: {cfg.name} prefill of {B} x {S} tokens "
+            f"plain {t_plain:.3f} s, under the 1 x 1 layout {t_layout:.3f} s "
+            f"(parameters laid out in {t_dist:.3f} s); logits and "
+            f"{sum(len(v) for v in cache.values())} cache leaves bit-equal; "
+            f"K4/K5 launches {n_plain} plain, {n_layout} laid out")
+        del model, cache, c2, logits, l2
+        torch.cuda.empty_cache()
+
+        small = configs.get_smoke_config("deepseek-moe-16b")
+        ref = M.init_params(small, seed=3)
+        tree = M.params_to_numpy(ref)
+        specs = sharding.param_pspecs(small, plan, fsdp=True)
+        with tempfile.TemporaryDirectory() as d:
+            _, t_save = sync_time(lambda: save_checkpoint(d, 5, {
+                "params": tree}))
+            back, t_load = sync_time(lambda: load_checkpoint(
+                d, 5, {"params": tree}, shardings={
+                    "params": sharding.checkpoint_shardings(small, specs,
+                                                            mesh)}))
+        n = 0
+        for name, p in ref.named_parameters():
+            path, i = M.leaf_path(name)
+            leaf = back["params"]
+            for k in path:
+                leaf = leaf[k]
+            got = leaf if i is None else leaf[i]
+            spec = sharding.layer_spec(sharding.lookup(specs, path), name)
+            if tuple(got.placements) != sharding.placements(spec, mesh):
+                raise AssertionError(f"{name}: placements {got.placements}")
+            if not torch.equal(got.full_tensor(), p.float()):
+                raise AssertionError(f"{name}: restored values differ")
+            n += 1
+        log(f"elastic restore on the card: {small.name} smoke, {n} "
+            f"parameters written ({t_save:.3f} s) and restored onto the "
+            f"1 x 1 mesh ({t_load:.3f} s), each bit-equal on the placements "
+            "its layout asks for")
+
+
+def dry_run(ks, clock_hz) -> dict:
+    """Phase 17: (a) the dry run's cells, then (b) and (c) on the card."""
+    out = dryrun_cells(ks, clock_hz)
+    layout_on_the_card()
+    return out
+
+
+# -- phase 18: K4 and K5 figures --------------------------------------------------
 
 def k4_call_figures(fa, q, k, v, causal) -> dict:
     """CUDA-event times of one K4 call (the wrapper, the launch alone, the
@@ -4554,6 +4777,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     model_rows[0]["rest_of_nn"] = rest_of_nn()
     trained = training()
+    dry = dry_run(ks, clock_mhz * 1e6)
     for row in model_rows:          # K4 and K5: their launches and summed
         row["train"] = trained[row["name"]]   # figures training hymba
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
@@ -4564,6 +4788,7 @@ def main() -> int:
         row["exec"] = execution[row["name"]]      # under the post-kernel
         row["verify"] = verify[row["name"]]       # check; K1's on the
     rows[0]["collectives"] = collectives["segment_reduce"]  # collectives
+    rows[0]["dryrun"] = dry["segment_reduce"]      # and on the dry run
     rows.append(k3_row(*k3_run))
     rows.extend(model_rows)
     log(f"paper measurements launches (Figs. 10-11 at full width): "
@@ -4580,6 +4805,8 @@ def main() -> int:
         f"{k} {v['launches']}" for k, v in verify.items()))
     log(f"collective pricing launches: segment_reduce "
         f"{collectives['segment_reduce']['launches']}")
+    log(f"dry run launches: segment_reduce "
+        f"{dry['segment_reduce']['launches']}")
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,12 @@ a leaf's key is its path joined by ``/`` (``params/layers/attn/wq``,
 ``opt/step``), as the reference's ``jax.tree_util`` paths give it for the
 same tree, and bf16 is stored as float32.  Every leaf is copied to the
 host before :func:`save_checkpoint` returns, so training may go on
-updating its tensors in place while the writer thread serialises.  The
-reference's elastic restore onto another mesh (``shardings``) waits for
-the port's parallel layout (ROADMAP queue item 13).
+updating its tensors in place while the writer thread serialises.
+:func:`load_checkpoint`'s ``shardings`` restores onto the DTensor
+placements of a given mesh (the elastic restore): a checkpoint written by
+either package comes back laid out on any mesh, a stacked ``[L, ...]``
+leaf split into its layers when the port's per-layer parameters ask for
+that (:func:`repro_torch.parallel.sharding.checkpoint_shardings`).
 """
 from __future__ import annotations
 
@@ -39,6 +42,18 @@ def _flatten(tree, prefix: str = "") -> dict:
     out = {}
     for k in sorted(tree):
         out.update(_flatten(tree[k], f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _flatten_layouts(tree, prefix: str = "") -> dict:
+    """:func:`_flatten` for a ``shardings`` tree, whose leaves are tuples
+    and lists."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(_flatten_layouts(tree[k],
+                                    f"{prefix}/{k}" if prefix else str(k)))
     return out
 
 
@@ -106,16 +121,41 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
+def _distribute(arr: np.ndarray, like, sharding):
+    """``arr`` in the like's dtype as a DTensor laid out by ``sharding``:
+    ``(mesh, placements)``, or a list of them, one a layer of a stacked
+    leaf (a list of DTensors, the leaf split along axis 0)."""
+    from torch.distributed.tensor import distribute_tensor
+    t = torch.from_numpy(arr)
+    if isinstance(like, torch.Tensor):
+        t = t.to(like.dtype)
+    if isinstance(sharding, list):
+        if len(sharding) != t.shape[0]:
+            raise ValueError(f"{len(sharding)} layer layouts for a stack of "
+                             f"{t.shape[0]}")
+        return [distribute_tensor(t[i].to(mesh.device_type), mesh, pl)
+                for i, (mesh, pl) in enumerate(sharding)]
+    mesh, pl = sharding
+    return distribute_tensor(t.to(mesh.device_type), mesh, pl)
+
+
 def load_checkpoint(directory: str, step: int, like_tree,
-                    verify: bool = True):
+                    verify: bool = True, shardings=None):
     """Load a checkpoint into the structure of ``like_tree``: a tensor
     leaf comes back as a tensor on the like's device in its dtype, any
     other leaf as a numpy array in the like's dtype.  With ``verify``,
     each leaf's crc32 is checked first and a mismatch raises
-    ``IOError``."""
+    ``IOError``.
+
+    ``shardings`` (the elastic restore): a tree like ``like_tree`` whose
+    leaves are ``(mesh, placements)``; each leaf comes back a DTensor on
+    that mesh (``distribute_tensor`` from the whole leaf), in the like's
+    dtype.  A list of them for a stacked leaf gives a list of DTensors, one
+    a layer."""
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    sh_leaves = None if shardings is None else _flatten_layouts(shardings)
     out = {}
     for key, like in _flatten(like_tree).items():
         meta = manifest["leaves"][key]
@@ -123,7 +163,9 @@ def load_checkpoint(directory: str, step: int, like_tree,
         if verify and _crc(arr) != meta["crc32"]:
             raise IOError(f"checkpoint corruption in {key}: crc "
                           f"{_crc(arr)} != {meta['crc32']}")
-        if isinstance(like, torch.Tensor):
+        if sh_leaves is not None:
+            out[key] = _distribute(arr, like, sh_leaves[key])
+        elif isinstance(like, torch.Tensor):
             out[key] = torch.from_numpy(arr).to(like.device, like.dtype)
         else:
             out[key] = arr.astype(np.asarray(like).dtype)
@@ -163,11 +205,12 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
                           ignore_errors=True)
 
-    def restore_latest(self, like_tree):
+    def restore_latest(self, like_tree, shardings=None):
         """(step, tree) of the newest committed checkpoint, or (None,
-        None)."""
+        None); ``shardings`` as :func:`load_checkpoint` takes it."""
         self.wait()
         step = latest_step(self.directory)
         if step is None:
             return None, None
-        return step, load_checkpoint(self.directory, step, like_tree)
+        return step, load_checkpoint(self.directory, step, like_tree,
+                                     shardings=shardings)

@@ -35,6 +35,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .build import kernel, launch
 
@@ -83,9 +84,12 @@ def _check(q, k, v) -> torch.device:
         if t.dtype not in _DTYPES:
             raise TypeError(f"{what} must be float32 or bfloat16, got "
                             f"{t.dtype}")
+        if isinstance(t, DTensor):
+            raise TypeError(f"{what} is a DTensor: a layout hands K4 its "
+                            "local shards (local_map)")
         if not t.is_contiguous():
             raise ValueError(f"{what} must be contiguous")
-        if t.device.type not in ("cpu", "cuda"):
+        if t.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"{what} lies on unsupported device {t.device}")
     if k.shape != v.shape:
         raise ValueError(f"k and v shapes differ: {tuple(k.shape)} vs "
@@ -138,9 +142,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unit does at default precision), moving a row by at most ``2^-9 max_j
     |v_j|`` beyond the float32 result (``l`` is summed from the unrounded
     ``p``); it needs 16-byte aligned inputs.  On CPU tensors it is
-    :func:`flash_attention_plain`.
+    :func:`flash_attention_plain`; on ``meta`` tensors (the dry run's
+    trace: shapes only) it is the plain version's shapes, and builds and
+    launches nothing.  A DTensor is refused: a layout hands K4 its local
+    shards.
     """
-    if _check(q, k, v).type == "cpu":
+    if _check(q, k, v).type in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, causal)
     return _flash_attention_cuda(q, k, v, causal)
 

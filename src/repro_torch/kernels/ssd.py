@@ -40,6 +40,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .build import kernel, launch
 
@@ -94,7 +95,10 @@ def _check(dtx, Bm, Cm, cumA):
                              f"got shape {tuple(t.shape)}")
         if t.dtype != torch.float32:
             raise TypeError(f"{what} must be float32, got {t.dtype}")
-        if t.device.type not in ("cpu", "cuda"):
+        if isinstance(t, DTensor):
+            raise TypeError(f"{what} is a DTensor: a layout hands K5 its "
+                            "local shards (local_map)")
+        if t.device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"{what} lies on unsupported device {t.device}")
     d4, b4, c4, a4 = (_as4(t) for _, t in named)
     G1, heads, q, p = d4.shape
@@ -145,10 +149,13 @@ def ssd_intra_chunk(dtx, Bm, Cm, cumA):
     p], S_c [G, n, p])``, contiguous float32.  On CUDA tensors this is one
     launch of K5 (``q, n, p`` at most 128 and within :data:`MAX_SMEM` bytes
     of shared memory a block, :func:`smem_bytes`), float32-allclose to the
-    plain version; on CPU tensors it is :func:`ssd_intra_chunk_plain`.
+    plain version; on CPU tensors it is :func:`ssd_intra_chunk_plain`;
+    on ``meta`` tensors (the dry run's trace: shapes only) it is the plain
+    version's shapes, and builds and launches nothing.  A DTensor is
+    refused: a layout hands K5 its local shards.
     """
     dev, G, heads, q, n, p = _check(dtx, Bm, Cm, cumA)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return ssd_intra_chunk_plain(dtx, Bm, Cm, cumA)
     return _ssd_intra_chunk_cuda(dtx, Bm, Cm, cumA, G, heads, q, n, p)
 

@@ -14,6 +14,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.context import (head_local, is_dtensor,
+                                          item_local, merge_dims, model_size,
+                                          split_dim)
 
 from .config import ArchConfig
 from .layers import apply_m_rope, apply_rope, rmsnorm
@@ -24,9 +27,9 @@ NEG_INF = -1e30
 def _project_qkv(x, p, cfg: ArchConfig):
     B, S = x.shape[:2]
     hd = cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_dim(x @ p["wq"], (B, S, cfg.n_heads, hd))
+    k = split_dim(x @ p["wk"], (B, S, cfg.n_kv_heads, hd))
+    v = split_dim(x @ p["wv"], (B, S, cfg.n_kv_heads, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -50,6 +53,54 @@ def quantize_kv(t: torch.Tensor):
     return q, s
 
 
+def _flash(q, k, v, causal: bool):
+    """K4 on q, k, v; DTensors through :func:`_heads_local`."""
+    def run(q, k, v):
+        return ops.mha_flash(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal)
+
+    return _heads_local(run, q, k, v) if is_dtensor(q) else run(q, k, v)
+
+
+def _heads_local(core, q, k, v):
+    """``core`` on DTensors q [B, Sq, H, D] and k/v [B, Sk, KH, D] rank by
+    rank, each rank on its heads where the model axis splits them
+    (:func:`head_local`).  Where the query heads split and the kv heads do
+    not (fewer kv heads than ranks), each kv head is repeated for its
+    share of ranks first, which leaves every query head reading its own kv
+    head.  Where the heads do not split, each (row, kv head) item of a
+    data shard goes to one model rank in turn (:func:`item_local`), so
+    that no rank attends what another does."""
+    H, KH = q.shape[2], k.shape[2]
+    tp = model_size(q)
+    if H % tp == 0 and KH % tp and tp % KH == 0:
+        g = tp // KH
+        B, S, _, D = k.shape
+        k, v = (t[:, :, :, None, :].expand(B, S, KH, g, D)
+                .reshape(B, S, KH * g, D) for t in (k, v))
+        KH = KH * g
+    if H % tp == 0 and KH % tp == 0:
+        return head_local(core, (q, k, v), (2, 2, 2), (2,))
+    return item_local(lambda r, n, q, k, v: _items(core, r, n, q, k, v),
+                      (q, k, v), (True, True, True), 1)
+
+
+def _items(core, rank: int, ranks: int, q, k, v):
+    """``core`` on this rank's (row, kv head) items, ``rank``, ``rank +
+    ranks``, ...: batched as rows of one kv head and its query heads, the
+    output zero but for them."""
+    b, sq, H, D = q.shape
+    KH = k.shape[2]
+    items = torch.arange(rank, max(rank, b * KH), ranks, device=q.device)
+    rows, heads = items // KH, items % KH
+    out = q.new_zeros(b, sq, KH, H // KH, D)
+    if len(items):
+        out[rows, :, heads] = core(
+            q.reshape(b, sq, KH, H // KH, D)[rows, :, heads],
+            k[rows, :, heads][:, :, None], v[rows, :, heads][:, :, None])
+    return out.reshape(b, sq, H, D)
+
+
 def attention(x, p, cfg: ArchConfig, positions, causal: bool = True):
     """Full self-attention (prefill): returns (out [B, S, d], (k, v)), with
     ``k`` after RoPE, as the decode cache holds it.  ``positions`` is
@@ -57,9 +108,7 @@ def attention(x, p, cfg: ArchConfig, positions, causal: bool = True):
     q, k, v = _project_qkv(x, p, cfg)
     if cfg.rope_theta:
         q, k = _rope_qk(q, k, positions, cfg)
-    out = ops.mha_flash(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=causal)
-    out = out.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
+    out = merge_dims(_flash(q, k, v, causal), 2)
     return out @ p["wo"], (k, v)
 
 
@@ -87,33 +136,124 @@ def decode_attention(x, p, cfg: ArchConfig, cache_k, cache_v, pos: int,
         if cfg.m_rope:
             positions = positions[..., None].expand(B, 1, 3)
         q, k = _rope_qk(q, k, positions, cfg)
-    scales = ()
-    if cfg.kv_quant:
-        (kq, ks), (vq, vs) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
-        cache_k[:, pos], k_scale[:, pos] = kq, ks
-        cache_v[:, pos], v_scale[:, pos] = vq, vs
-        k_eff = cache_k.float() * k_scale[..., None]
-        v_eff = (cache_v.float() * v_scale[..., None]).bfloat16()
-        scales = (k_scale, v_scale)
+    scales = (k_scale, v_scale) if cfg.kv_quant else ()
+    if is_dtensor(cache_k):
+        out = _decode_laid_out(q, k, v, cache_k, cache_v, k_scale, v_scale,
+                               pos, cfg, x.dtype)
     else:
-        cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-        k_eff, v_eff = cache_k, cache_v
+        out = _decode_core(q, k, v, cache_k, cache_v, k_scale, v_scale, pos,
+                           cfg, x.dtype)
+    return (out @ p["wo"], cache_k, cache_v) + scales
 
-    S = cache_k.shape[1]
-    KH, D = cfg.n_kv_heads, cfg.head_dim
-    rep = cfg.n_heads // KH
-    qg = q.reshape(B, 1, KH, rep, D)
+
+def _decode_core(q, k, v, ck, cv, ks, vs, pos: int, cfg: ArchConfig, dtype,
+                 mode=None, rank: int = 0, reduce=None, gather=None):
+    """The token's cache write and its attention: q [B, 1, H, D], k/v [B,
+    1, KH, D] against the cache ``ck``/``cv`` [B, S, KH, D] (and under
+    ``cfg.kv_quant`` the scales ``ks``/``vs`` [B, S_max, KH]); returns
+    out [B, 1, H * D] in ``dtype``.  With a ``mode`` the cache is rank
+    ``rank``'s shard, split over the model axis by kv heads (``"heads"``),
+    head dim (``"dim"``: partial scores summed by ``reduce``, the output
+    joined by ``gather``) or sequence (``"seq"``: the softmax's max and
+    sum and the output summed by ``reduce``); the scales are whole
+    along the sequence."""
+    B, S = ck.shape[:2]
+    D = cfg.head_dim
+    rep = cfg.n_heads // cfg.n_kv_heads
+    s0 = rank * S if mode == "seq" else 0
+    d0, dl = (rank * ck.shape[3], ck.shape[3]) if mode == "dim" else (0, D)
+    if mode == "heads":
+        h0, hl = rank * ck.shape[2], ck.shape[2]
+        q = q[:, :, h0 * rep:(h0 + hl) * rep]
+        k, v = k[:, :, h0:h0 + hl], v[:, :, h0:h0 + hl]
+    at = pos - s0
+    if cfg.kv_quant:
+        (kq, kss), (vq, vss) = quantize_kv(k[:, 0]), quantize_kv(v[:, 0])
+        ks[:, pos], vs[:, pos] = kss, vss
+        if 0 <= at < S:
+            ck[:, at] = kq[..., d0:d0 + dl]
+            cv[:, at] = vq[..., d0:d0 + dl]
+        kl, vl = ks[:, s0:s0 + S], vs[:, s0:s0 + S]
+        k_eff = ck.float() * kl[..., None]
+        v_eff = (cv.float() * vl[..., None]).bfloat16()
+    else:
+        if 0 <= at < S:
+            ck[:, at] = k[:, 0, :, d0:d0 + dl].to(ck.dtype)
+            cv[:, at] = v[:, 0, :, d0:d0 + dl].to(cv.dtype)
+        k_eff, v_eff = ck, cv
+    qg = q[..., d0:d0 + dl].reshape(B, 1, ck.shape[2], rep, dl)
     dt = torch.promote_types(qg.dtype, k_eff.dtype)
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qg.to(dt),
                           k_eff.to(dt)).float()
+    if mode == "dim":
+        scores = reduce(scores, "sum")
     scores = scores / D ** 0.5
-    valid = torch.arange(S, device=x.device) <= pos
+    valid = torch.arange(s0, s0 + S, device=ck.device) <= pos
     scores = scores.masked_fill(~valid, NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(v_eff.dtype)
-    out = torch.einsum("bhrqk,bkhd->bqhrd", w, v_eff).reshape(
-        B, 1, cfg.n_heads * D).to(x.dtype)
-    return (out @ p["wo"], cache_k, cache_v) + scales
+    if mode == "seq":
+        m = reduce(scores.amax(-1, keepdim=True), "max")
+        e = torch.exp(scores - m)
+        w = (e / reduce(e.sum(-1, keepdim=True), "sum")).to(v_eff.dtype)
+        # the partial outputs add in float32, rounded once after
+        out = reduce(torch.einsum("bhrqk,bkhd->bqhrd", w.float(),
+                                  v_eff.float()), "sum").to(v_eff.dtype)
+    else:
+        w = torch.softmax(scores, dim=-1).to(v_eff.dtype)
+        out = torch.einsum("bhrqk,bkhd->bqhrd", w, v_eff)
+    if mode == "dim":
+        out = gather(out)
+    return out.reshape(B, 1, -1).to(dtype)
+
+
+def _decode_laid_out(q, k, v, cache_k, cache_v, k_scale, v_scale, pos: int,
+                     cfg: ArchConfig, dtype):
+    """:func:`_decode_core` on a cache of DTensors laid out by
+    ``cache_pspecs``, rank by rank (``local_map``): each rank writes its
+    part of the token's entries into its cache shard and attends with it,
+    the model axis splitting the kv heads (each rank its heads), the head
+    dim (partial scores summed over the axis, the output gathered) or the
+    sequence (flash-decoding).  Returns out [B, 1, H * D], split by heads
+    over the model axis in the first case, else whole."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = cache_k.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    mi = names.index("model") if "model" in names else None
+    pl = tuple(cache_k.placements)
+    mode = None
+    if mi is not None and isinstance(pl[mi], Shard):
+        mode = {2: "heads", 3: "dim", 1: "seq"}[pl[mi].dim]
+    rank = mesh.get_local_rank(mi) if mode else 0
+    group = (mesh, mi)
+    tok_pl = tuple(Shard(0) if i != mi and p == Shard(0) else Replicate()
+                   for i, p in enumerate(pl))
+    out_pl = tuple(Shard(2) if i == mi and mode == "heads" else p
+                   for i, p in enumerate(tok_pl))
+
+    def waited(t):
+        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) \
+            else t
+
+    def reduce(t, op):
+        return waited(funcol.all_reduce(t, op, group))
+
+    def gather(t):
+        join = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+        return waited(join(t.contiguous(), t.ndim - 1, group))
+
+    def core(q, k, v, ck, cv, ks, vs):
+        return _decode_core(q, k, v, ck, cv, ks, vs, pos, cfg, dtype, mode,
+                            rank, reduce, gather)
+
+    scale_pl = tuple(k_scale.placements) if cfg.kv_quant else None
+    ks, vs = (k_scale, v_scale) if cfg.kv_quant else (None, None)
+    mapped = local_map(core, out_placements=(out_pl,),
+                       in_placements=(tok_pl, tok_pl, tok_pl, pl, pl,
+                                      scale_pl, scale_pl),
+                       device_mesh=mesh, redistribute_inputs=True)
+    return mapped(q, k, v, cache_k, cache_v, ks, vs)
 
 
 def cross_attention(x, p, cfg: ArchConfig, enc_out):
@@ -124,11 +264,16 @@ def cross_attention(x, p, cfg: ArchConfig, enc_out):
     B, Sq, _ = x.shape
     Sk = enc_out.shape[1]
     KH, D = cfg.n_kv_heads, cfg.head_dim
-    rep = cfg.n_heads // KH
-    qg = (x @ p["wq"]).reshape(B, Sq, KH, rep, D)
-    k = (enc_out @ p["wk"]).reshape(B, Sk, KH, D)
-    v = (enc_out @ p["wv"]).reshape(B, Sk, KH, D)
-    scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float() / D ** 0.5
-    w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhrqk,bkhd->bqhrd", w, v).reshape(B, Sq, -1)
-    return out @ p["wo"]
+    q = split_dim(x @ p["wq"], (B, Sq, cfg.n_heads, D))
+    k = split_dim(enc_out @ p["wk"], (B, Sk, KH, D))
+    v = split_dim(enc_out @ p["wv"], (B, Sk, KH, D))
+
+    def core(q, k, v):
+        b, sq, h, _ = q.shape
+        qg = q.reshape(b, sq, k.shape[2], h // k.shape[2], D)
+        scores = torch.einsum("bqhrd,bkhd->bhrqk", qg, k).float() / D ** 0.5
+        w = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bhrqk,bkhd->bqhrd", w, v).reshape(b, sq, h, D)
+
+    out = _heads_local(core, q, k, v) if is_dtensor(q) else core(q, k, v)
+    return merge_dims(out, 2) @ p["wo"]

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.parallel.context import gather_model, reduce_output as _out
+
 from .attention import attention, cross_attention, decode_attention
 from .config import ArchConfig
 from .layers import mlp, norm
@@ -17,7 +19,9 @@ from .ssm import ssm_decode, ssm_mixer
 
 
 def _norm(x, p, cfg):
-    return norm(x, p, cfg.norm_type, cfg.norm_eps)
+    """The normed input of a mixer, whole over the model axis under a
+    layout (``gather_model``)."""
+    return gather_model(norm(x, p, cfg.norm_type, cfg.norm_eps))
 
 
 def _ffn(x, lp, cfg: ArchConfig):
@@ -25,9 +29,9 @@ def _ffn(x, lp, cfg: ArchConfig):
     None)."""
     if cfg.block_kind == "moe":
         m_out, aux = moe_ffn(_norm(x, lp["ln2"], cfg), lp["moe"], cfg)
-        return x + m_out, aux
+        return x + _out(m_out), aux
     if cfg.d_ff:
-        x = x + mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type)
+        x = x + _out(mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type))
     return x, None
 
 
@@ -43,14 +47,15 @@ def block_forward(x, lp, cfg: ArchConfig, positions, causal: bool = True,
     cache_el: dict = {}
 
     if kind == "ssm":
-        res = ssm_mixer(_norm(x, lp["ln1"], cfg), lp["ssm"], cfg,
-                        return_state=collect_cache)
+        # the mixer lays out its own input (``ssm._in_proj``)
+        res = ssm_mixer(norm(x, lp["ln1"], cfg.norm_type, cfg.norm_eps),
+                        lp["ssm"], cfg, return_state=collect_cache)
         if collect_cache:
             y, (conv_st, ssd_st) = res
             cache_el.update(conv=conv_st, ssd=ssd_st)
         else:
             y = res
-        x = x + y
+        x = x + _out(y)
     elif kind == "hybrid":
         xn = _norm(x, lp["ln1"], cfg)
         a_out, kv = attention(xn, lp["attn"], cfg, positions, causal=causal)
@@ -60,13 +65,13 @@ def block_forward(x, lp, cfg: ArchConfig, positions, causal: bool = True,
             cache_el.update(k=kv[0], v=kv[1], conv=conv_st, ssd=ssd_st)
         else:
             s_out = res
-        x = x + 0.5 * (a_out + s_out)
+        x = x + 0.5 * (_out(a_out) + _out(s_out))
     else:
         a_out, kv = attention(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
                               positions, causal=causal)
         if collect_cache:
             cache_el.update(k=kv[0], v=kv[1])
-        x = x + a_out
+        x = x + _out(a_out)
 
     x, aux = _ffn(x, lp, cfg)
     if aux is None:
@@ -79,8 +84,8 @@ def encoder_block(x, lp, cfg: ArchConfig, positions):
     mask, then the MLP."""
     a_out, _ = attention(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
                          positions, causal=False)
-    x = x + a_out
-    return x + mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type)
+    x = x + _out(a_out)
+    return x + _out(mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type))
 
 
 def cross_block(x, lp, cfg: ArchConfig, positions, enc_out):
@@ -89,10 +94,10 @@ def cross_block(x, lp, cfg: ArchConfig, positions, enc_out):
     Returns (x, (k, v)) of the self-attention."""
     a_out, kv = attention(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
                           positions, causal=True)
-    x = x + a_out
-    x = x + cross_attention(_norm(x, lp["ln3"], cfg), lp["xattn"], cfg,
-                            enc_out)
-    x = x + mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type)
+    x = x + _out(a_out)
+    x = x + _out(cross_attention(_norm(x, lp["ln3"], cfg), lp["xattn"], cfg,
+                                 enc_out))
+    x = x + _out(mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type))
     return x, kv
 
 
@@ -118,20 +123,20 @@ def block_decode(x, lp, cfg: ArchConfig, cache_l: dict, pos: int):
     if kind == "ssm":
         y, new_conv, new_ssd = ssm_decode(_norm(x, lp["ln1"], cfg), lp["ssm"],
                                           cfg, cache_l["conv"], cache_l["ssd"])
-        x = x + y
+        x = x + _out(y)
         new_cache.update(conv=new_conv, ssd=new_ssd)
     elif kind == "hybrid":
         xn = _norm(x, lp["ln1"], cfg)
         a_out = _dec_attn(xn)
         s_out, new_conv, new_ssd = ssm_decode(xn, lp["ssm"], cfg,
                                               cache_l["conv"], cache_l["ssd"])
-        x = x + 0.5 * (a_out + s_out)
+        x = x + 0.5 * (_out(a_out) + _out(s_out))
         new_cache.update(conv=new_conv, ssd=new_ssd)
     else:
-        x = x + _dec_attn(_norm(x, lp["ln1"], cfg))
+        x = x + _out(_dec_attn(_norm(x, lp["ln1"], cfg)))
 
     if cfg.cross_attention:
-        x = x + cross_attention(_norm(x, lp["ln3"], cfg), lp["xattn"], cfg,
-                                cache_l["enc_out"])
+        x = x + _out(cross_attention(_norm(x, lp["ln3"], cfg), lp["xattn"],
+                                     cfg, cache_l["enc_out"]))
     x, _ = _ffn(x, lp, cfg)
     return x, new_cache

@@ -31,9 +31,14 @@ recompute.  :meth:`Model.trainable` lets the parameters require grad; the
 inference entry points run under ``torch.no_grad``.
 
 Every entry point takes ``device=None``, meaning CUDA, and raises without a
-CUDA device; the CPU runs only when asked for with ``device="cpu"``.  The
-dry-run's abstract trees (``abstract_params``, ``abstract_cache``) wait for
-ROADMAP queue item 14.
+CUDA device; the CPU runs only when asked for with ``device="cpu"``, and
+``"meta"`` (shapes only) when named.  :func:`abstract_params` and
+:func:`abstract_cache` give the dry run's ``meta`` trees.  Under a
+parallel context (:mod:`repro_torch.parallel.context`) with DTensor
+parameters the forwards run laid out: the residual sequence-sharded
+between layers (``_constrain_residual``), the embedding vocab-parallel,
+each mixer's input gathered over the model axis and its output reduced
+back, K4 and K5 on each rank's heads through ``local_map``.
 """
 from __future__ import annotations
 
@@ -41,10 +46,12 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import context as pctx
 
 from .attention import quantize_kv
 from .blocks import block_decode, block_forward, cross_block, encoder_block
@@ -245,6 +252,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> Model:
     return _model_from_leaves(cfg, make)
 
 
+def abstract_params(cfg: ArchConfig) -> Model:
+    """A :class:`Model` of ``meta`` tensors in the parameter dtypes: shapes
+    and dtypes only, nothing allocated (the dry run's parameters)."""
+    return _model_from_leaves(cfg, lambda path, sh, i: torch.empty(
+        sh if i is None else sh[1:], dtype=param_dtype(path), device="meta"))
+
+
 def _tensor_from_numpy(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":           # ml_dtypes' bfloat16: same bits
@@ -349,7 +363,7 @@ def same_device(a: torch.device, b: torch.device) -> bool:
 
 def _bind(params: Model, device) -> torch.device:
     """Resolve ``device`` and check the model lies there."""
-    dev = resolve_device(device)
+    dev = resolve_device(device, meta=True)
     if not same_device(params.device, dev):
         raise ValueError(f"the model lies on {params.device}, not on {dev}")
     return dev
@@ -363,13 +377,18 @@ def _put(t, dev: torch.device) -> torch.Tensor:
 
 
 def _embed(params: Model, tokens):
+    if pctx.is_dtensor(params.embed):
+        return pctx.reduce_output(
+            pctx.vocab_parallel_embedding(tokens, params.embed))
     return params.embed[tokens]
 
 
 def _unembed(params: Model, cfg: ArchConfig, x):
-    if cfg.tie_embeddings:
-        return x @ params.embed.T
-    return x @ params.lm_head
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    if pctx.is_dtensor(x) and not _vocab_split(params, cfg):
+        # the vocab whole on each rank: each rank its own positions
+        return pctx.local_product(x, w)
+    return x @ w
 
 
 def _project(params: Model, t: torch.Tensor) -> torch.Tensor:
@@ -397,11 +416,23 @@ def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
 def _run_encoder(params: Model, cfg: ArchConfig, frames) -> torch.Tensor:
     """Whisper's encoder on precomputed frame embeddings [B, S_enc, d]:
     ``frontend_proj``, the encoder stack (K4 with no mask), its norm."""
-    x = _project(params, frames)
+    # laid out as a residual: the column-parallel projection's output
+    # gathered over the model axis (its norm reduces over d)
+    x = pctx.reduce_output(_project(params, frames))
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     for lp in params.encoder:
         x = encoder_block(x, lp, cfg, positions)
     return norm(x, params.enc_final_norm, cfg.norm_type, cfg.norm_eps)
+
+
+def _constrain_residual(x):
+    """The residual [B, S, d] redistributed to the ambient context's
+    sequence-sharded layout (Megatron-SP) when a context is active and
+    ``x`` is a DTensor; else ``x`` itself."""
+    ctx = pctx.current()
+    if ctx is None or not pctx.is_dtensor(x):
+        return x
+    return pctx.constrain(x, ctx.residual_sharding(x.shape[0], x.shape[1]))
 
 
 def _decoder_layer(x, lp, cfg: ArchConfig, positions, enc_out,
@@ -429,9 +460,11 @@ def _run_layers(params: Model, cfg: ArchConfig, x, positions, enc_out,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     dense_cfg = _dense_view(cfg)
     dense_els, els = [], []
+    x = _constrain_residual(x)
     for lp in params.dense_layers:
         x, a, el = block_forward(x, lp, dense_cfg, positions,
                                  collect_cache=collect)
+        x = _constrain_residual(x)
         aux = aux + a
         dense_els.append(el)
     for lp in params.layers:
@@ -442,6 +475,7 @@ def _run_layers(params: Model, cfg: ArchConfig, x, positions, enc_out,
         else:
             x, a, el = _decoder_layer(x, lp, cfg, positions, enc_out,
                                       collect)
+        x = _constrain_residual(x)
         if a is not None:
             aux = aux + a
         els.append(el)
@@ -460,7 +494,19 @@ def _hidden(params: Model, cfg: ArchConfig, dev, tokens, embeds, positions,
         if cfg.encoder_layers else None
     x, aux, _, _ = _run_layers(params, cfg, x, positions, enc_out,
                                collect=False, remat=remat)
-    return norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps), aux
+    x = norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps)
+    return (pctx.gather_model(x) if _vocab_split(params, cfg) else x), aux
+
+
+def _vocab_split(params: Model, cfg: ArchConfig) -> bool:
+    """Whether the model axis splits the unembedding's vocab: then the
+    logits are vocab-parallel (the hidden state gathered over the model
+    axis first); else the vocab is whole on each rank and the logits are
+    computed on the residual's layout (sequence-parallel where the
+    residual is sequence-sharded), so that no rank computes another's."""
+    w, dim = (params.embed, 0) if cfg.tie_embeddings \
+        else (params.lm_head, 1)
+    return not pctx.is_dtensor(w) or pctx.model_shards(w, dim)
 
 
 @torch.no_grad()
@@ -496,7 +542,13 @@ def _xent_block(params: Model, cfg: ArchConfig, xc, tc, mc):
     the weights' dtype, then float32 for the log-sum-exp."""
     lf = _unembed(params, cfg, xc).float()
     lse = torch.logsumexp(lf, dim=-1)
-    tgt = lf.gather(-1, tc[..., None])[..., 0]
+    if pctx.is_dtensor(lf):
+        # vocab- or sequence-parallel: each rank picks the targets among
+        # its own logits
+        vocab = torch.arange(lf.shape[-1], device=lf.device)
+        tgt = torch.where(tc[..., None] == vocab, lf, 0).sum(-1)
+    else:
+        tgt = lf.gather(-1, tc[..., None])[..., 0]
     return torch.sum((lse - tgt) * mc)
 
 
@@ -507,7 +559,9 @@ def _chunked_xent(params: Model, cfg: ArchConfig, x, targets, mask,
     (its logits recomputed in the backward pass), when ``chunk`` divides
     ``S`` and is shorter; else one block, as in the reference."""
     S = x.shape[1]
-    if S % chunk or S <= chunk:
+    # a sequence-sharded DTensor would gather for each slice: one block
+    if S % chunk or S <= chunk or (pctx.is_dtensor(x)
+                                   and pctx.shard_parts(x, 1) > 1):
         tot = _xent_block(params, cfg, x, targets, mask)
     else:
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -590,6 +644,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
             for group, shapes in cache_shapes(cfg, batch, max_seq).items()}
 
 
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """The decode cache as ``meta`` tensors of its shapes and dtypes."""
+    return {group: {k: torch.empty(sh, dtype=cache_dtype(k, cfg),
+                                   device="meta")
+                    for k, sh in shapes.items()}
+            for group, shapes in cache_shapes(cfg, batch, max_seq).items()}
+
+
 def _decode_stack(x, layers, cfg: ArchConfig, stacked: dict, pos: int):
     """One token through a stack of layers and its cache group."""
     for i, lp in enumerate(layers):
@@ -617,7 +679,8 @@ def decode_step(params: Model, cfg: ArchConfig, cache: dict, token, pos: int,
         x = _decode_stack(x, params.dense_layers, _dense_view(cfg),
                           cache["dense_layers"], pos)
     x = _decode_stack(x, params.layers, cfg, cache["layers"], pos)
-    x = norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps)
+    x = pctx.gather_model(
+        norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps))
     return _unembed(params, cfg, x)[:, 0], cache
 
 
@@ -627,6 +690,8 @@ def _cache_of(els: list, cfg: ArchConfig, B: int, S: int,
     cache of ``max_seq`` positions, zero past the prompt (the reference's
     padding); under ``cfg.kv_quant`` int8 with float32 scales, quantised
     as decode quantises."""
+    if els and pctx.is_dtensor(next(iter(els[0].values()))):
+        return _cache_of_layout(els, cfg, S, max_seq)
     out: dict = {}
 
     def put(name, i, t, seq: bool):
@@ -648,6 +713,40 @@ def _cache_of(els: list, cfg: ArchConfig, B: int, S: int,
             else:
                 put(name, i, t, name in ("k", "v"))
     return out
+
+
+def _cache_of_layout(els: list, cfg: ArchConfig, S: int,
+                     max_seq: int) -> dict:
+    """:func:`_cache_of` for DTensor elements: each leaf stacked over the
+    layers, k/v (and scales) zero-padded to ``max_seq`` positions, then
+    laid out by the context's cache layouts (``cache_pspecs``), as the
+    reference's prefill emits its cache to its output shardings."""
+    from repro_torch.parallel import sharding
+
+    def pad(t):
+        if max_seq == S:
+            return t
+        widths = [0, 0] * (t.ndim - 3) + [0, max_seq - S]
+        return pctx.local_op(lambda a: F.pad(a, widths),
+                             pctx.replicate_dims(t, [2]))
+
+    out: dict = {}
+    for name in els[0]:
+        ts = [el[name] for el in els]
+        if name in ("k", "v") and cfg.kv_quant:
+            qs = [quantize_kv(t) for t in ts]
+            out[name] = pad(torch.stack([q for q, _ in qs]))
+            out[f"{name}_scale"] = pad(torch.stack([s for _, s in qs]))
+        elif name in ("k", "v"):
+            out[name] = pad(torch.stack(ts))
+        else:
+            out[name] = torch.stack(ts)
+    ctx = pctx.current()
+    if ctx is None:
+        return out
+    plan = sharding.MeshPlan(ctx.mesh, ctx.dp_axes, ctx.model_axis)
+    specs = sharding.cache_pspecs(plan, out)
+    return {k: pctx.constrain(t, specs[k]) for k, t in out.items()}
 
 
 @torch.no_grad()
@@ -675,7 +774,8 @@ def prefill(params: Model, cfg: ArchConfig, tokens=None, embeds=None,
         if cfg.encoder_layers else None
     x, _, dense_els, els = _run_layers(params, cfg, x, positions, enc_out,
                                        collect=True)
-    x = norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps)
+    x = pctx.gather_model(
+        norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps))
     logits = _unembed(params, cfg, x[:, -1:])[:, 0]
     cache = {"layers": _cache_of(els, cfg, B, S, max_seq)}
     if cfg.cross_attention:

@@ -9,13 +9,16 @@ back, weighted by its gate and added to its token in the activations'
 dtype.  Assignments past an expert's capacity are dropped, as in
 GShard/Switch.  Every step is plain torch, as it is plain jnp in the
 reference, which has no Pallas kernel here; the expert products are
-``torch.bmm``.
+einsums over the buffer.
 
-The reference routes D data shards at once (``_dp_groups``) and pins
-layouts with sharding constraints (``_constrain``, ``_constrain_moe_buf``).
-All three are the identity without a parallel context, which the port does
-not have yet (ROADMAP queue item 13), so the port routes one group (D = 1)
-and has none of them.
+The tokens are routed in D groups at once, as the reference routes them:
+one group a data shard under a parallel context
+(:mod:`repro_torch.parallel.context`, ``_dp_groups``), else D = 1.  Each
+group sorts its own assignments along an unsharded dim and gets its own
+capacity from its own token count, so the results depend on D.
+``_constrain`` and ``_constrain_moe_buf`` pin the groups and the ``[D, E,
+C, d]`` capacity buffer to the data axes, the experts to the model axis
+(expert parallelism); with no context they are the identity.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import context as pctx
 
 from .config import ArchConfig
 from .layers import mlp
@@ -55,115 +60,248 @@ def capacity(n_tokens: int, cfg: ArchConfig) -> int:
     return max(8, ((c + 7) // 8) * 8)
 
 
+def _dp_groups(b: int) -> tuple[int, object]:
+    """Number of data shards D dividing the batch, and the dp spec (or
+    None); (1, None) with no parallel context.
+
+    Routing and dispatch are batched over data shards so every gather and
+    scatter carries a leading D dim laid out over the dp axes."""
+    ctx = pctx.current()
+    if ctx is None:
+        return 1, None
+    sizes = pctx.axis_sizes(ctx.mesh)
+    spec = pctx.dp_spec(sizes, ctx.dp_axes, b)
+    if spec is None:
+        return 1, None
+    axes = spec if isinstance(spec, tuple) else (spec,)
+    D = 1
+    for a in axes:
+        D *= sizes[a]
+    return D, spec
+
+
+def _constrain(t, parts):
+    """``t`` laid out by ``parts`` under a parallel context (a DTensor
+    redistributed); else ``t``."""
+    return pctx.constrain(t, parts)
+
+
+def _constrain_moe_buf(buf, dp_spec):
+    """Pin the capacity buffer [D, E, C, d] to (dp, model-on-E) so the
+    expert products run expert-parallel."""
+    ctx = pctx.current()
+    if ctx is None:
+        return buf
+    E = buf.shape[1]
+    tp = pctx.axis_sizes(ctx.mesh)[ctx.model_axis]
+    e_ax = ctx.model_axis if E % tp == 0 else None
+    return pctx.constrain(buf, (dp_spec, e_ax, None, None))
+
+
 def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig):
     """x: [b, s, d] -> ([b, s, d], aux_loss).
 
-    More than ``MOE_CHUNK_TOKENS`` tokens, in a whole multiple of it, are
+    The tokens route in D groups (``_dp_groups``: one a data shard under a
+    parallel context, else D = 1), each group on its own.  More than
+    ``MOE_CHUNK_TOKENS`` tokens a group, in a whole multiple of it, are
     routed one chunk after another, each chunk with its own capacity, and
     the aux loss is the chunks' mean, as in the reference.
     """
     b, s, d = x.shape
-    T = b * s
-    xf = x.reshape(T, d)
+    D, dp_spec = _dp_groups(b)
+    T = (b * s) // D                                  # tokens per group
+    x = _constrain(x, (dp_spec, None, None))
     if T > MOE_CHUNK_TOKENS and T % MOE_CHUNK_TOKENS == 0:
         sub = T // MOE_CHUNK_TOKENS
+        xr = pctx.reshape_rows(x, (D, sub, MOE_CHUNK_TOKENS, d))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         ys = []
-        for xc in xf.split(MOE_CHUNK_TOKENS):
-            yc, a = _moe_tokens(xc, p, cfg)
+        for j in range(sub):
+            yc, a = _moe_groups(xr[:, j], p, cfg, dp_spec)
             aux = aux + a / sub
-            ys.append(yc)
-        return torch.cat(ys).reshape(b, s, d), aux
-    y, aux = _moe_tokens(xf, p, cfg)
-    return y.reshape(b, s, d), aux
+            ys.append(_constrain(yc, (dp_spec, None, None)))
+        y = pctx.reshape_rows(torch.stack(ys, dim=1), (b, s, d))
+    else:
+        y, aux = _moe_groups(pctx.reshape_rows(x, (D, T, d)), p, cfg,
+                             dp_spec)
+        y = pctx.reshape_rows(y, (b, s, d))
+    if cfg.n_shared_experts and pctx.is_dtensor(x):
+        y = y + _shared(x, p)
+    return y, aux
 
 
 class Dispatch(NamedTuple):
-    """Where each (token, expert) assignment goes, in expert-sorted order:
-    ``order`` the stable sort of the flat ``[T * K]`` expert ids,
-    ``tok`` each sorted assignment's token, ``slot`` its flat ``[E * C]``
-    buffer slot (clipped), ``keep`` whether it fits the expert's capacity,
-    ``counts`` the assignments of each expert."""
+    """Where each (token, expert) assignment of each group goes, in
+    expert-sorted order, every field [D, T * K] but ``counts`` [D, E]:
+    ``order`` the stable sort of the group's flat expert ids, ``tok``
+    each sorted assignment's token, ``slot`` its flat ``[E * C]`` buffer
+    slot (clipped), ``keep`` whether it fits the expert's capacity,
+    ``gates`` its gate, ``counts`` the assignments of each expert."""
     order: torch.Tensor
     tok: torch.Tensor
     slot: torch.Tensor
     keep: torch.Tensor
+    gates: torch.Tensor
     counts: torch.Tensor
 
 
 def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
-    """Top-k routing of tokens ``xf`` [T, d] in float32: returns (gates
-    [T, K] renormalised to sum 1, expert ids [T, K], aux loss).
+    """Top-k routing of token groups ``xf`` [D, T, d] in float32: returns
+    (gates [D, T, K] renormalised to sum 1, expert ids [D, T, K], the
+    router probabilities summed over every token [E], the assignments of
+    each expert over every group [E]).
 
     The experts are ranked by a stable descending sort of the softmax, so
-    ties go to the lower expert id, as ``jax.lax.top_k`` breaks them.  The
-    aux loss is Switch's ``E * sum_e mean(probs_e) * count_e / (T K)``.
-    """
+    ties go to the lower expert id, as ``jax.lax.top_k`` breaks them."""
     E, K = cfg.n_experts, cfg.n_experts_active
-    T = xf.shape[0]
     probs = torch.softmax(xf.float() @ router.float(), dim=-1)
     ranked, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = ranked[:, :K], ids[:, :K]
+    gates, idx = ranked[..., :K], ids[..., :K]
     gates = gates / gates.sum(dim=-1, keepdim=True)
-    hits = torch.zeros(E, dtype=torch.float32, device=xf.device).index_add_(
-        0, idx.reshape(-1), torch.ones(T * K, device=xf.device))
-    aux = E * torch.sum(probs.mean(dim=0) * (hits / (T * K)))
-    return gates, idx, aux
+    experts_ = torch.arange(E, device=xf.device)
+    hits = (idx.reshape(-1)[:, None] == experts_).sum(0).float()
+    return gates, idx, probs.sum(dim=(0, 1)), hits
 
 
-def dispatch(xf: torch.Tensor, idx: torch.Tensor, C: int, E: int):
-    """Gather tokens ``xf`` [T, d] into the ``[E, C, d]`` capacity buffer
-    by their expert ids ``idx`` [T, K]: slot (e, c) holds the c-th
-    assignment of expert e in the stably sorted list, zeros past its count.
+def aux_loss(prob_sum, hits, n_tokens: int, cfg: ArchConfig):
+    """Switch's load-balance loss ``E * sum_e mean(probs_e) * count_e /
+    (T K)`` over ``n_tokens`` tokens, from :func:`route`'s sums."""
+    E, K = cfg.n_experts, cfg.n_experts_active
+    return E * torch.sum(prob_sum / n_tokens * (hits / (n_tokens * K)))
+
+
+def dispatch(xf: torch.Tensor, idx: torch.Tensor, gates: torch.Tensor,
+             C: int, E: int):
+    """Gather token groups ``xf`` [D, T, d] into the ``[D, E, C, d]``
+    capacity buffer by their expert ids ``idx`` [D, T, K]: slot (e, c) of
+    a group holds the c-th assignment of expert e in the group's stably
+    sorted list (a sort along the group's own dim), zeros past its count.
     Returns (buffer, :class:`Dispatch`).  No device-to-host read."""
-    T, K = idx.shape
-    d = xf.shape[1]
-    eflat = idx.reshape(-1)
-    order = torch.argsort(eflat, stable=True)
-    e_sorted = eflat[order]
+    D, T, K = idx.shape
+    d = xf.shape[-1]
+    eflat = idx.reshape(D, T * K)
+    order = torch.argsort(eflat, dim=-1, stable=True)
+    e_sorted = torch.gather(eflat, 1, order)
     tok = order // K
-    counts = torch.zeros(E, dtype=torch.long, device=xf.device).scatter_add_(
-        0, eflat, torch.ones_like(eflat))
-    offsets = counts.cumsum(0) - counts
-    rank = torch.arange(T * K, device=xf.device) - offsets[e_sorted]
+    experts_ = torch.arange(E, device=xf.device)
+    counts = (eflat[..., None] == experts_).sum(1)             # [D, E]
+    offsets = counts.cumsum(-1) - counts
+    rank = (torch.arange(T * K, device=xf.device)[None, :]
+            - torch.gather(offsets, 1, e_sorted))
     keep = rank < C
-    gidx = offsets[:, None] + torch.arange(C, device=xf.device)[None, :]
-    in_use = gidx < (offsets + counts.clamp(max=C))[:, None]
-    gclip = gidx.clamp(0, T * K - 1).reshape(-1)
-    buf = torch.where(in_use.reshape(-1, 1), xf[tok[gclip]], 0)
+    gidx = offsets[:, :, None] + torch.arange(C, device=xf.device)
+    in_use = gidx < (offsets + counts.clamp(max=C))[:, :, None]
+    gclip = gidx.clamp(0, T * K - 1).reshape(D, E * C)
+    xs = torch.gather(xf, 1, tok[..., None].expand(D, T * K, d))
+    buf = torch.gather(xs, 1, gclip[..., None].expand(D, E * C, d))
+    buf = torch.where(in_use.reshape(D, E * C)[..., None], buf, 0)
     slot = (e_sorted * C + rank).clamp(0, E * C - 1)
-    return buf.reshape(E, C, d), Dispatch(order, tok, slot, keep, counts)
+    g_sorted = torch.gather(gates.reshape(D, T * K), 1, order)
+    return buf.reshape(D, E, C, d), Dispatch(order, tok, slot, keep,
+                                             g_sorted, counts)
 
 
-def experts(buf: torch.Tensor, p: dict) -> torch.Tensor:
-    """Every expert's SwiGLU on its slots: [E, C, d] -> [E, C, d], the
-    gate's silu in float32, as in the reference."""
-    gate = torch.bmm(buf, p["w1"])
-    up = torch.bmm(buf, p["w3"])
-    h = F.silu(gate.float()).to(buf.dtype) * up
-    return torch.bmm(h, p["w2"])
-
-
-def combine(out_buf: torch.Tensor, gates: torch.Tensor, plan: Dispatch,
-            T: int) -> torch.Tensor:
-    """Each kept assignment's expert output times its gate, added to its
-    token in the activations' dtype: [E, C, d] -> [T, d]."""
-    E, C, d = out_buf.shape
+def combine(out_buf: torch.Tensor, plan: Dispatch, T: int) -> torch.Tensor:
+    """Each kept assignment's expert output [D, E, C, d] gathered back,
+    times its gate, added to its token in the activations' dtype: [D, T,
+    d]."""
+    D, E, C, d = out_buf.shape
+    TK = plan.slot.shape[1]
     dtype = out_buf.dtype
-    gathered = out_buf.reshape(E * C, d)[plan.slot]
-    g_sorted = gates.reshape(-1)[plan.order].to(dtype)
-    contrib = torch.where(plan.keep[:, None], gathered * g_sorted[:, None], 0)
-    return torch.zeros(T, d, dtype=dtype, device=out_buf.device).index_add_(
-        0, plan.tok, contrib)
+    gathered = torch.gather(out_buf.reshape(D, E * C, d), 1,
+                            plan.slot[..., None].expand(D, TK, d))
+    contrib = torch.where(plan.keep[..., None],
+                          gathered * plan.gates[..., None].to(dtype), 0)
+    y = torch.zeros(D, T, d, dtype=dtype, device=out_buf.device)
+    return y.scatter_add(1, plan.tok[..., None].expand(D, TK, d), contrib)
 
 
-def _moe_tokens(xf: torch.Tensor, p: dict, cfg: ArchConfig):
-    """Routed (and shared) experts on one group of tokens [T, d]."""
-    T = xf.shape[0]
-    gates, idx, aux = route(xf, p["router"], cfg)
-    buf, plan = dispatch(xf, idx, capacity(T, cfg), cfg.n_experts)
-    y = combine(experts(buf, p), gates, plan, T)
+def _route_and_dispatch(xf, router, cfg: ArchConfig, C: int):
+    """:func:`route` then :func:`dispatch`: (buffer, the plan's fields,
+    the probability sum, the hits)."""
+    gates, idx, prob_sum, hits = route(xf, router, cfg)
+    buf, plan = dispatch(xf, idx, gates, C, cfg.n_experts)
+    return (buf, *plan, prob_sum, hits)
+
+
+def _moe_groups(xf: torch.Tensor, p: dict, cfg: ArchConfig, dp_spec):
+    """Routed (and shared) experts for [D, T, d] token groups: top-k
+    routing, a stable sort of each group's assignments by expert along its
+    own (unsharded) dim, gathers into the [D, E, C, d] capacity buffer
+    (``C`` from ``T``), the experts' SwiGLU, and a gather-combine back,
+    the reference's ``_moe_groups`` op for op.  DTensor groups route and
+    combine rank by rank (``local_map``), the buffer's experts split over
+    the model axis for the expert products and gathered back for the
+    combine; their shared experts run in :func:`moe_ffn`."""
+    D, T, d = xf.shape
+    C = capacity(T, cfg)
+    if pctx.is_dtensor(xf):
+        return _moe_groups_laid_out(xf, p, cfg, dp_spec, C)
+    buf, *plan, prob_sum, hits = _route_and_dispatch(xf, p["router"], cfg, C)
+    aux = aux_loss(prob_sum, hits, D * T, cfg)
+    out_buf = experts(_constrain_moe_buf(buf, dp_spec), p)
+    y = combine(out_buf, Dispatch(*plan), T)
     if cfg.n_shared_experts:
-        y = y + mlp(xf, {"w1": p["shared_w1"], "w3": p["shared_w3"],
-                         "w2": p["shared_w2"]}, "swiglu")
+        y = y + _shared(xf, p)
     return y, aux
+
+
+def _shared(x, p: dict):
+    """The shared experts' SwiGLU on tokens [..., d]."""
+    return mlp(x, {"w1": p["shared_w1"], "w3": p["shared_w3"],
+                   "w2": p["shared_w2"]}, "swiglu")
+
+
+def _moe_groups_laid_out(xf, p: dict, cfg: ArchConfig, dp_spec, C: int):
+    """:func:`_moe_groups`' routed experts on DTensor groups [D, T, d]
+    (laid out over the data axes, whole over the model axis)."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    D, T, d = xf.shape
+    mesh = xf.device_mesh
+    x_pl = tuple(xf.placements)
+    rep = tuple(Replicate() for _ in x_pl)
+    summed = tuple(Partial() if p != Replicate() else p for p in x_pl)
+    split = tuple(p != Replicate() for p in x_pl)
+    n_plan = len(Dispatch._fields)
+    route_ = local_map(
+        lambda x, r: _route_and_dispatch(x, r, cfg, C),
+        out_placements=(x_pl,) * (1 + n_plan) + (summed, summed),
+        in_placements=(x_pl, rep),
+        in_grad_placements=pctx.grad_placements((x_pl, rep), split),
+        device_mesh=mesh, redistribute_inputs=True)
+    buf, *plan, prob_sum, hits = route_(xf, p["router"])
+    aux = aux_loss(prob_sum, hits, D * T, cfg)
+    out_buf = experts(_constrain_moe_buf(buf, dp_spec), p)
+    combine_ = local_map(lambda b, *a: combine(b, Dispatch(*a), T),
+                         out_placements=(x_pl,),
+                         in_placements=(x_pl,) * (1 + n_plan),
+                         device_mesh=mesh, redistribute_inputs=True)
+    return combine_(out_buf, *plan), aux
+
+
+def experts(buf, p: dict):
+    """Every expert's SwiGLU on the [D, E, C, d] buffer, the gate's silu
+    in float32, as in the reference.  On DTensors each rank runs its own
+    experts on its own groups (``local_map``): the weights whole over the
+    data axes (an FSDP layout gathered), split over the model axis as the
+    buffer's experts are."""
+    def run(buf, w1, w3, w2):
+        gate = torch.einsum("gecd,edf->gecf", buf, w1)
+        up = torch.einsum("gecd,edf->gecf", buf, w3)
+        h = F.silu(gate.float()).to(buf.dtype) * up
+        return torch.einsum("gecf,efd->gecd", h, w2)
+
+    ws = (p["w1"], p["w3"], p["w2"])
+    if not pctx.is_dtensor(buf):
+        return run(buf, *ws)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    b_pl = tuple(buf.placements)
+    w_pl = tuple(Shard(0) if p == Shard(1) else Replicate() for p in b_pl)
+    in_pl = (b_pl, w_pl, w_pl, w_pl)
+    split = tuple(p != Replicate() for p in b_pl)
+    mapped = local_map(run, out_placements=(b_pl,), in_placements=in_pl,
+                       in_grad_placements=pctx.grad_placements(in_pl, split),
+                       device_mesh=buf.device_mesh, redistribute_inputs=True)
+    return mapped(buf, *ws)

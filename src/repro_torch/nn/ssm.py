@@ -15,6 +15,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.context import (constrain, current, gather_model,
+                                          head_local, is_dtensor, item_local,
+                                          local_op, local_product, merge_dims,
+                                          model_shards, model_size,
+                                          replicate_dims, split_dim)
 
 from .config import ArchConfig
 from .layers import rmsnorm
@@ -44,8 +49,13 @@ def _split_proj(zxbcdt, cfg: ArchConfig):
 
 
 def _causal_conv(xBC, w, b, K: int):
-    """Depthwise causal conv1d, kernel K (stacked-slice form)."""
-    pad = F.pad(xBC, (0, 0, K - 1, 0))
+    """Depthwise causal conv1d, kernel K (stacked-slice form); a DTensor
+    pads its shards (the sequence whole on each)."""
+    if is_dtensor(xBC):
+        pad = local_op(lambda a: F.pad(a, (0, 0, K - 1, 0)),
+                       replicate_dims(xBC, [1]))
+    else:
+        pad = F.pad(xBC, (0, 0, K - 1, 0))
     L = xBC.shape[1]
     out = sum(pad[:, k:k + L, :] * w[k] for k in range(K))
     return F.silu((out + b).float()).to(xBC.dtype)
@@ -55,7 +65,8 @@ def ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk: int,
                 return_final_state: bool = False):
     """SSD scan in chunked matmul form.
 
-    x: [b, l, h, p]; Bm/Cm: [b, l, n]; dt: [b, l, h] (post-softplus).
+    x: [b, l, h, p]; Bm/Cm: [b, l, n]; dt: [b, l, h] (post-softplus);
+    A_log/D: [h], or [b, h] for heads that differ by row.
     Returns y: [b, l, h, p] float32 (and the final SSD state [b, h, n, p]
     when ``return_final_state``, which seeds decode).
     """
@@ -70,7 +81,9 @@ def ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk: int,
     Br = Bm.reshape(b, nc, q, n).float()
     Cr = Cm.reshape(b, nc, q, n).float()
     dtr = dt.reshape(b, nc, q, h).float()
-    a = -torch.exp(A_log.float()) * dtr                    # [b,nc,q,h]
+    A_log, D = (t.float().reshape(-1 if t.ndim == 2 else 1, 1, 1, h)
+                for t in (A_log, D))                   # [b|1,1,1,h]
+    a = -torch.exp(A_log) * dtr                            # [b,nc,q,h]
     cumA = torch.cumsum(a, dim=2)                          # inclusive
     dtx = xr.float() * dtr[..., None]                      # dt_j * x_j
 
@@ -97,15 +110,72 @@ def ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk: int,
 
     y_inter = torch.einsum("bcin,bchnp->bcihp", Cr, S_in) \
         * torch.exp(cumA)[..., None]
-    y = y_intra + y_inter + D.float()[None, None, None, :, None] * xr.float()
+    y = y_intra + y_inter + D[..., None] * xr.float()
     y = y.reshape(b, l, h, p)
     if return_final_state:
         return y, s
     return y
 
 
+def _ssd(x, Bm, Cm, dt, A_log, D, chunk: int, return_state: bool):
+    """:func:`ssd_chunked`; DTensors through :func:`head_local`, each rank
+    scanning its heads (B and C, shared by the heads, whole on every
+    rank), or where the heads do not split over the model axis through
+    :func:`item_local`, each (row, head) item of a data shard scanned by
+    one model rank in turn."""
+    def run(x, Bm, Cm, dt, A_log, D):
+        return ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk,
+                           return_final_state=return_state)
+
+    args = (x, Bm, Cm, dt, A_log, D)
+    if not is_dtensor(x):
+        return run(*args)
+    if x.shape[2] % model_size(x) == 0:
+        return head_local(run, args, (2, None, None, 2, 0, 0),
+                          (2, 1) if return_state else (2,),
+                          batch_dims=(0, 0, 0, 0, None, None))
+
+    def items(rank, ranks, x, Bm, Cm, dt, A_log, D):
+        b, l, h, p = x.shape
+        picked = torch.arange(rank, max(rank, b * h), ranks,
+                              device=x.device)
+        rows, heads = picked // h, picked % h
+        y = x.new_zeros(b, l, h, p, dtype=torch.float32)
+        s = x.new_zeros(b, h, Bm.shape[-1], p, dtype=torch.float32)
+        if len(picked):
+            res = run(x[rows, :, heads][:, :, None], Bm[rows], Cm[rows],
+                      dt[rows, :, heads][:, :, None], A_log[heads][:, None],
+                      D[heads][:, None])
+            y_i, s_i = res if return_state else (res, None)
+            y[rows, :, heads] = y_i[:, :, 0]
+            if return_state:
+                s[rows, heads] = s_i[:, 0]
+        return (y, s) if return_state else y
+
+    return item_local(items, args, (True,) * 4 + (False,) * 2,
+                      2 if return_state else 1)
+
+
+def _in_proj(xin, w):
+    """``xin @ w``.  Under a layout ``xin`` may come sequence-sharded
+    over the model axis: where that axis splits ``w``'s columns, ``xin`` is
+    gathered first (column-parallel); where it does not (their count does
+    not divide it), each rank projects its own positions and the product
+    is gathered after, so that no rank projects another's."""
+    if not is_dtensor(xin):
+        return xin @ w
+    ctx = current()
+    spec = None if model_shards(w, 1) or ctx is None \
+        else ctx.residual_sharding(xin.shape[0], xin.shape[1])
+    if spec is None:
+        return gather_model(xin) @ w
+    return replicate_dims(local_product(constrain(xin, spec), w), [1])
+
+
 def ssm_mixer(xin, p, cfg: ArchConfig, return_state: bool = False):
-    """Full Mamba2 mixer (prefill).  xin: [b, l, d] -> [b, l, d].
+    """Full Mamba2 mixer (prefill).  xin: [b, l, d] -> [b, l, d]; under a
+    layout ``xin`` may be sequence-sharded over the model axis
+    (:func:`_in_proj`).
 
     With ``return_state``, also returns (conv_state, ssd_state) ready for
     decode continuation.
@@ -113,17 +183,17 @@ def ssm_mixer(xin, p, cfg: ArchConfig, return_state: bool = False):
     di, n, h, phd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
                      cfg.ssm_head_dim)
     K = cfg.ssm_conv_kernel
-    zxbcdt = xin @ p["in_proj"]
+    zxbcdt = _in_proj(xin, p["in_proj"])
     z, xBC_raw, dt = _split_proj(zxbcdt, cfg)
     xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"], K)
-    x = xBC[..., :di].reshape(xin.shape[0], xin.shape[1], h, phd)
+    x = split_dim(xBC[..., :di], (xin.shape[0], xin.shape[1], h, phd))
     Bm = xBC[..., di:di + n]
     Cm = xBC[..., di + n:]
     dt = F.softplus(dt.float() + p["dt_bias"].float())
-    res = ssd_chunked(x, Bm, Cm, dt, p["A_log"], p["D"], cfg.ssm_chunk,
-                      return_final_state=return_state)
+    res = _ssd(x, Bm, Cm, dt, p["A_log"], p["D"], cfg.ssm_chunk,
+               return_state)
     y, s_fin = res if return_state else (res, None)
-    y = y.reshape(xin.shape[0], xin.shape[1], di).to(xin.dtype)
+    y = merge_dims(y, 2).to(xin.dtype)
     y = rmsnorm(y * F.silu(z.float()).to(xin.dtype), p["norm"], cfg.norm_eps)
     out = y @ p["out_proj"]
     if return_state:

@@ -23,9 +23,9 @@ the node-aware model earns its keep.
 Everything here is deterministic (no RNG): equal arguments always produce
 bit-identical patterns.
 
-Port note: a copy of ``repro.workloads.tp`` (host numpy) without
-``row_parallel_ops_from_pspecs``: that cross-check reads the jax sharding
-tree, whose port is ROADMAP queue item 13.  The patterns use only
+Port note: a copy of ``repro.workloads.tp`` (host numpy);
+:func:`row_parallel_ops_from_pspecs` reads the port's layout tree
+(:func:`repro_torch.parallel.sharding.param_pspecs`).  The patterns use only
 :func:`row_parallel_ops_per_layer`, as the reference's do.
 """
 from __future__ import annotations
@@ -95,6 +95,35 @@ def row_parallel_ops_per_layer(cfg: ArchConfig, tp: int) -> int:
             ops += 1
     elif cfg.d_ff and cfg.d_ff % tp == 0:
         ops += 1
+    return ops
+
+
+def row_parallel_ops_from_pspecs(cfg: ArchConfig, plan=None) -> int:
+    """The same per-layer op count read off the *actual* layout tree.
+
+    Builds :func:`repro_torch.parallel.sharding.param_pspecs` for ``cfg``
+    (on ``plan``, or a single-axis plan of one model rank when ``plan`` is
+    None, as the reference's one host device gives it) and counts the
+    leaves of the ``layers`` stack whose layout places the model axis on
+    the contraction (second-to-last) dimension — the row-parallel
+    signature.  The numpy-only twin :func:`row_parallel_ops_per_layer` is
+    the derivation the patterns use; tests hold the two equal.
+    """
+    from repro_torch.nn.model import param_shapes
+    from repro_torch.parallel.sharding import (MODEL_AXIS, make_mesh_plan,
+                                               param_pspecs)
+
+    if plan is None:
+        plan = make_mesh_plan({"data": 1, "model": 1})
+    specs = param_pspecs(cfg, plan)["layers"]
+    shapes = param_shapes(cfg)["layers"]
+    ops = 0
+    for group, leaves in specs.items():
+        for name, spec in leaves.items():
+            sh = shapes[group][name]
+            parts = tuple(spec) + (None,) * (len(sh) - len(spec))
+            if len(sh) >= 2 and parts[len(sh) - 2] == MODEL_AXIS:
+                ops += 1
     return ops
 
 

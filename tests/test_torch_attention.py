@@ -130,7 +130,10 @@ def test_flash_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "rank":
         q = q[0]
     else:
-        q, k, v = q.to("meta"), k.to("meta"), v.to("meta")
+        # meta inputs are the dry run's shape-only path (tested in
+        # test_torch_parallel.py); q on meta beside k and v on the host is
+        # refused
+        q = q.to("meta")
     with pytest.raises((ValueError, TypeError)):
         ops.mha_flash(q, k, v)
 

@@ -68,7 +68,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     # (core.hlo, core.decompose) and training's (train, data, ckpt, the
     # two drivers) among them
     mods = set(res.stdout.split())
-    assert len(mods) >= 78
+    assert len(mods) >= 86
     assert {"repro_torch.core.hlo", "repro_torch.core.decompose",
             "repro_torch.serve.strategy", "repro_torch.serve.admission",
             "repro_torch.serve.cache", "repro_torch.comm.health",
@@ -81,7 +81,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             "repro_torch.train.optim", "repro_torch.train.trainer",
             "repro_torch.data", "repro_torch.data.pipeline",
             "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
-            "repro_torch.launch.train", "repro_torch.launch.serve"} <= mods
+            "repro_torch.launch.train", "repro_torch.launch.serve",
+            "repro_torch.parallel", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.context", "repro_torch.parallel.autotune",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline", "repro_torch.launch.perf"} <= mods
 
 
 # Reads the reference package's ``__init__`` as text (its ``__all__`` and
@@ -168,7 +172,9 @@ print(" ".join(left))
                "Trainer", "TrainConfig"), ()),
     ("data", ("SyntheticTokens", "shard_assignment"), ()),
     ("ckpt", ("save_checkpoint", "load_checkpoint", "latest_step",
-              "CheckpointManager"), ())])
+              "CheckpointManager"), ()),
+    ("parallel", ("MeshPlan", "make_mesh_plan", "param_pspecs",
+                  "batch_pspecs", "cache_pspecs", "shardings"), ())])
 def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     # every name of repro.<pkg>.__all__ that the port defines in the
     # counterpart submodule is the same object at repro_torch.<pkg>, and
@@ -182,16 +188,9 @@ def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     assert res.returncode == 0, res.stderr + res.stdout
     ported, left = (line.split() for line in res.stdout.splitlines()[:2])
     assert set(must) <= set(ported), ported
-    if pkg == "nn":
-        # the dry-run's abstract trees (ROADMAP queue item 14)
-        assert sorted(left) == ["abstract_cache", "abstract_params"], left
-    if pkg in ("train", "data", "ckpt"):
+    if pkg in ("nn", "train", "data", "ckpt", "parallel", "core", "configs",
+               "workloads", "serve", "exec"):
         assert left == [], left
-    if pkg in ("core", "configs", "workloads", "serve", "exec"):
-        # the one name left: the pspec cross-check needs the jax sharding
-        # tree (ROADMAP queue item 13)
-        assert left == (["row_parallel_ops_from_pspecs"]
-                        if pkg == "workloads" else []), left
     if pkg == "comm":
         # the port has one backend, so no STACK_BACKENDS
         assert left == ["STACK_BACKENDS"], left

@@ -136,10 +136,11 @@ def test_moe_ffn_matches_repro(arch, f32, T):
                                atol=tol)
     np.testing.assert_allclose(float(aux), float(r_aux), rtol=AUX_TOL,
                                atol=AUX_TOL)
-    gates, idx, aux2 = moe.route(tx.reshape(T, -1), tp["router"], cfg)
-    np.testing.assert_array_equal(idx.numpy(), r_idx)
-    assert float(aux2) == float(aux)
-    torch.testing.assert_close(gates.sum(-1), torch.ones(T))
+    gates, idx, prob_sum, hits = moe.route(tx.reshape(1, T, -1),
+                                           tp["router"], cfg)
+    np.testing.assert_array_equal(idx[0].numpy(), r_idx)
+    assert float(moe.aux_loss(prob_sum, hits, T, cfg)) == float(aux)
+    torch.testing.assert_close(gates[0].sum(-1), torch.ones(T))
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
@@ -153,11 +154,13 @@ def test_dropped_assignments_are_the_references(arch):
     C = moe.capacity(T, cfg)
     r_order, r_keep = _ref_keep(r_idx, C, cfg.n_experts)
     assert 0 < r_keep.sum() < r_keep.size        # some dropped, some kept
-    _, idx, _ = moe.route(tx.reshape(T, -1), tp["router"], cfg)
-    buf, plan = moe.dispatch(tx.reshape(T, -1), idx, C, cfg.n_experts)
-    np.testing.assert_array_equal(plan.order.numpy(), r_order)
-    np.testing.assert_array_equal(plan.keep.numpy(), r_keep)
-    np.testing.assert_array_equal(plan.counts.numpy(),
+    gates, idx, _, _ = moe.route(tx.reshape(1, T, -1), tp["router"], cfg)
+    buf, plan = moe.dispatch(tx.reshape(1, T, -1), idx, gates, C,
+                             cfg.n_experts)
+    buf = buf[0]
+    np.testing.assert_array_equal(plan.order[0].numpy(), r_order)
+    np.testing.assert_array_equal(plan.keep[0].numpy(), r_keep)
+    np.testing.assert_array_equal(plan.counts[0].numpy(),
                                   np.bincount(r_idx.reshape(-1),
                                               minlength=cfg.n_experts))
     # slot (e, c) holds the c-th kept token of expert e, zeros after
@@ -194,12 +197,12 @@ def test_chunked_routing_matches_repro(arch, T, monkeypatch):
                                atol=AUX_TOL)
     # one routing call a chunk of 16 tokens
     calls = []
-    real = moe._moe_tokens
-    monkeypatch.setattr(moe, "_moe_tokens",
-                        lambda xf, p, c: calls.append(len(xf)) or real(xf, p,
-                                                                       c))
+    real = moe._moe_groups
+    monkeypatch.setattr(moe, "_moe_groups",
+                        lambda xf, p, c, dp: calls.append(tuple(xf.shape[:2]))
+                        or real(xf, p, c, dp))
     moe.moe_ffn(tx, tp, cfg)
-    assert calls == [16] * (T // 16)
+    assert calls == [(1, 16)] * (T // 16)
 
 
 def test_unchunked_when_not_a_multiple(monkeypatch):
@@ -210,8 +213,8 @@ def test_unchunked_when_not_a_multiple(monkeypatch):
     _no_near_tie(probs, cfg.n_experts_active, "deepseek-moe-16b")
     want, _ = ref_moe.moe_ffn(jx, jp, rcfg)
     got, _ = moe.moe_ffn(tx, tp, cfg)
-    whole, _ = moe._moe_tokens(tx.reshape(40, -1), tp, cfg)
-    torch.testing.assert_close(got.reshape(40, -1), whole)
+    whole, _ = moe._moe_groups(tx.reshape(1, 40, -1), tp, cfg, None)
+    torch.testing.assert_close(got.reshape(40, -1), whole[0])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
                                atol=F32_TOL)
 
@@ -221,12 +224,12 @@ def test_ties_go_to_the_lower_expert_as_top_k_breaks_them():
     cfg, rcfg, tp, jp, tx, jx = _setup("qwen3-moe-30b-a3b", 8, True)
     tp["router"] = torch.zeros_like(tp["router"])
     jp["router"] = jnp.zeros_like(jp["router"])
-    gates, idx, aux = moe.route(tx.reshape(8, -1), tp["router"], cfg)
+    gates, idx, _, _ = moe.route(tx.reshape(1, 8, -1), tp["router"], cfg)
     _, r_idx = _ref_routing(jx, jp, rcfg)
-    np.testing.assert_array_equal(idx.numpy(), r_idx)
-    np.testing.assert_array_equal(idx.numpy(), np.tile(
+    np.testing.assert_array_equal(idx[0].numpy(), r_idx)
+    np.testing.assert_array_equal(idx[0].numpy(), np.tile(
         np.arange(cfg.n_experts_active), (8, 1)))
-    torch.testing.assert_close(gates, torch.full((8, 2), 0.5))
+    torch.testing.assert_close(gates[0], torch.full((8, 2), 0.5))
     want, r_aux = ref_moe.moe_ffn(jx, jp, rcfg)
     got, aux = moe.moe_ffn(tx, tp, cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
@@ -238,13 +241,13 @@ def test_combine_adds_in_the_activations_dtype():
     # bf16 activations: the combine's scatter-add is bf16, as the
     # reference's; so is the output
     cfg, rcfg, tp, jp, tx, jx = _setup("deepseek-moe-16b", 64, False)
-    gates, idx, _ = moe.route(tx.reshape(64, -1), tp["router"], cfg)
-    buf, plan = moe.dispatch(tx.reshape(64, -1), idx,
+    gates, idx, _, _ = moe.route(tx.reshape(1, 64, -1), tp["router"], cfg)
+    buf, plan = moe.dispatch(tx.reshape(1, 64, -1), idx, gates,
                              moe.capacity(64, cfg), cfg.n_experts)
     out = moe.experts(buf, tp)
     assert buf.dtype == out.dtype == torch.bfloat16
-    y = moe.combine(out, gates, plan, 64)
-    assert y.dtype == torch.bfloat16 and y.shape == (64, cfg.d_model)
+    y = moe.combine(out, plan, 64)
+    assert y.dtype == torch.bfloat16 and y.shape == (1, 64, cfg.d_model)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -259,9 +262,9 @@ def test_moe_ffn_on_cuda_matches_cpu(arch):
     got, aux = moe.moe_ffn(tx.cuda(), {k: v.cuda() for k, v in tp.items()},
                            cfg)
     want, w_aux = moe.moe_ffn(tx, tp, cfg)
-    _, idx_g, _ = moe.route(tx.reshape(512, -1).cuda(),
-                            tp["router"].cuda(), cfg)
-    _, idx_c, _ = moe.route(tx.reshape(512, -1), tp["router"], cfg)
+    _, idx_g, _, _ = moe.route(tx.reshape(1, 512, -1).cuda(),
+                               tp["router"].cuda(), cfg)
+    _, idx_c, _, _ = moe.route(tx.reshape(1, 512, -1), tp["router"], cfg)
     torch.testing.assert_close(idx_g.cpu(), idx_c, rtol=0, atol=0)
     torch.testing.assert_close(got.cpu(), want, rtol=F32_TOL, atol=F32_TOL)
     assert abs(float(aux) - float(w_aux)) <= AUX_TOL

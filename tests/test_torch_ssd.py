@@ -112,7 +112,10 @@ def test_ssd_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "rank":
         dtx = dtx[0]
     else:
-        dtx, Bm, Cm, cumA = (t.to("meta") for t in (dtx, Bm, Cm, cumA))
+        # meta inputs are the dry run's shape-only path (tested in
+        # test_torch_parallel.py); dtx on meta beside the rest on the host
+        # is refused
+        dtx = dtx.to("meta")
     with pytest.raises((ValueError, TypeError)):
         ssd.ssd_intra_chunk(dtx, Bm, Cm, cumA)
 
