@@ -215,11 +215,38 @@ Phases, in order (any failure raises and the script exits non-zero):
    32 K4 and 32 K5 launches in each; (c) deepseek-moe-16b's smoke config
    checkpointed and restored with ``shardings`` onto that mesh, every leaf
    bit-equal on the placements asked for;
-18. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
+18. the programs across ranks: the ``torch.distributed`` programs on
+   worlds of ranks as threads of this process (``launch.mesh.run_ranks``:
+   every rank computes on the one card, the threaded group's collectives
+   are copies on it, and a time is the world's work serialised on the
+   card, not a network's): (a) ``moe_ffn_ep`` for qwen3-moe-30b-a3b's MoE
+   layer at full width (bf16 random weights) on 8 ranks, capacity factor
+   8 on 1 x 2048 tokens held to ``moe_ffn`` on one device and 1.25 on 4 x
+   2048 tokens (drops) to ``moe_ffn_ep`` on a one-rank NCCL world, both
+   within relative L2 2^-8, with the drops, a call's wall and the peak
+   memory; (d) the executor across 8 ranks, ``tests/test_exec.py``'s
+   cases (4 presets x their strategies x both colorings): every delivered
+   matrix bit-equal to ``run_reference`` and to the virtual ranks, each
+   rank's digest one K1 launch within rtol 1e-4, ``time_schedule(mesh=)``
+   beside the virtual ranks'; (b) ``gpipe`` over hymba-1.5b's 32 layers
+   in 4 stages on 4 ranks, 4 microbatches of [1, 2048] in bf16, held to
+   the layers in order, K4's and K5's counts set to 0 just before (224
+   launches each); (c) ``dp_grads_compressed`` on hymba-1.5b's
+   ``lm_loss``, one [1, 2048] row a rank on 4 ranks (2 where 4 ranks'
+   float32 state would pass 72 GB): every entry within half a
+   quantisation step of the ranks' uncompressed mean, the one shot
+   within relative L2 0.07 of it and the 4-step error-feedback average
+   within 0.02 and below the one shot, and that mean within 0.04 of the
+   gradient of the mean loss on the whole batch on one device; (e) the
+   same programs on a one-rank NCCL world (the MoE layer, one 32-layer
+   stage, one row's compression) and the one-rank schedules of every
+   strategy through ``execute(mesh=)``;
+19. one ``{"kernels": [...]}`` JSON line: launches on the full-width runs
    (K1's and K2's rows add ``registry``, ``delta``, ``service``, ``exec``
    and ``verify``: their launches on phase 7's sweep, on phase 8, on phase
    9's cold query and reprice, on phase 10 and on phase 11's two checked
-   sweeps, and K1's ``collectives`` and ``dryrun``, on phases 12 and 17,
+   sweeps, and K1's ``collectives``, ``dryrun`` and ``ranks``, on phases
+   12, 17 and 18,
    with their calls' times and bound summed as below), worst error
    against the plain version, and CUDA-event times of the
    wrapper, the launch alone, the plain version and the one-call PyTorch
@@ -230,10 +257,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    its ``path`` ("wgmma"), its TFLOP/s launch alone, ``vs_library``
    (launch alone over SDPA) and ``rest_of_nn`` (its launches and summed
    figures on each model of phase 15), K5's its ``path`` ("mma.sync
-   3xTF32"), and both their ``tc_launches`` and ``train`` (their launches
+   3xTF32"), and both their ``tc_launches``, ``train`` (their launches
    and summed figures on phase 16's hymba training, with their torch-op
-   backwards' times);
-19. the card's name and power limit as ``nvidia-smi`` reports them, then,
+   backwards' times) and ``ranks`` (their launches in phase 18's
+   ``gpipe``, on thread ranks and on NCCL);
+20. the card's name and power limit as ``nvidia-smi`` reports them, then,
    last, ``{"ok": true, "device": {...}}``.
 
 Float32 matrix products run in full float32 (TF32 is switched off), so the
@@ -2646,7 +2674,7 @@ def collective_pricing(ks, clock_hz, card=None) -> dict:
     return kernel_sums(ks, "collectives", n, cap, clock_hz, prof)
 
 
-# -- phase 18: kernel figures ------------------------------------------------
+# -- the kernels line: K1, K2 and K3 figures ---------------------------------
 
 def k2_chain_ops(ks, posted, arrival, bounds):
     """(ops of the longest region's serial chain, ops of all regions) of
@@ -4607,7 +4635,502 @@ def dry_run(ks, clock_hz) -> dict:
     return out
 
 
-# -- phase 18: K4 and K5 figures --------------------------------------------------
+# -- phase 18: the programs across ranks ---------------------------------------
+
+#: (a)'s two runs of qwen3-moe-30b-a3b's MoE layer: (label, batch of 2048
+#: tokens, capacity factor)
+EP_RUNS = (("generous", 1, 8.0), ("config", 4, 1.25))
+EP_RANKS = 8
+#: the tokens' mean: it skews the random router's choices, as a trained
+#: router's are skewed, so that the config's capacity factor drops
+EP_SKEW = 0.25
+#: relative L2 bound of a bf16 MoE layer against another order of the same
+#: products
+EP_RTOL = 2 ** -8
+#: (b): hymba-1.5b's 32 layers in 4 stages, 4 microbatches of [1, 2048]
+PIPE = {"stages": 4, "micro": 4, "seq": 2048}
+#: (c): the ranks' float32 state may take this much of the card; ranks of
+#: [1, 2048] tokens, error-feedback steps averaged
+CMP = {"ranks": 4, "fallback_ranks": 2, "max_bytes": 72e9, "seq": 2048,
+       "steps": 4}
+#: (c)'s bound in quantisation steps: int8 rounding moves each rank's entry
+#: by at most half a step, and so their mean; the uncompressed mean comes
+#: from a second gradient pass, whose atomic adds (the embedding's
+#: backward) may differ in the last bits
+CMP_HALF_STEP = 0.5 + 1e-3
+#: (c)'s relative L2 limits of the compressed mean gradient against the
+#: ranks' uncompressed mean: the one shot (0.05224 on hymba-1.5b's tree
+#: on the H100; one int8 scale a tensor of up to 1.6e8 entries cannot
+#: meet the reference's 0.02, held on its 16 x 4 linear model) and the
+#: average of 4 error-feedback steps (0.01307)
+CMP_ONE_SHOT_REL = 0.07
+CMP_AVERAGED_REL = 0.02
+#: and of the ranks' uncompressed mean against the gradient of the mean
+#: loss taken on the whole batch on one device (no rank, no shard): two
+#: bf16 backwards of 32 layers in another order, 0.026 apart on the H100
+CMP_WHOLE_REL = 0.04
+
+
+def moe_layer(cfg, seed: int) -> dict:
+    """One MoE layer of ``cfg`` in bf16, drawn on the card with
+    ``init_params``' recipe (normal over the square root of the fan in)."""
+    from repro_torch.nn.moe import moe_param_shapes
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: (torch.randn(sh, generator=gen, device="cuda")
+                / sh[-2] ** 0.5).bfloat16()
+            for k, sh in moe_param_shapes(cfg).items()}
+
+
+def ep_drops(x, p, cfg) -> int:
+    """Assignments past the ``ep_a2a`` capacity in one rank's buffer (every
+    rank routes every token of ``x``)."""
+    from repro_torch.nn.moe import top_k
+    from repro_torch.workloads.moe import a2a_capacity
+
+    xf = x.reshape(-1, x.shape[-1])
+    idx = top_k(xf.float() @ p["router"].float(), cfg.n_experts_active)[2]
+    counts = torch.bincount(idx.reshape(-1), minlength=cfg.n_experts)
+    C = a2a_capacity(xf.shape[0], cfg)
+    return int((counts - C).clamp(min=0).sum())
+
+
+def timed_in_ranks(fn):
+    """``fn()`` once to warm up, then once timed, inside a rank: (result,
+    wall seconds of the timed call, ending in a device sync that waits for
+    every rank's work on the shared card)."""
+    fn()
+    torch.cuda.synchronize()
+    return sync_time(fn)
+
+
+def ep_across_ranks() -> dict:
+    """Phase 18 (a) and (e)'s MoE: ``moe_ffn_ep`` for qwen3-moe-30b-a3b's
+    MoE layer at full width (d 2048, 128 experts top-8 of width 768, bf16
+    random weights) on 8 thread ranks of ``cuda:0``, the experts split 16 a
+    rank: with capacity factor 8 on [1, 2048, 2048] (no drop) held to
+    ``nn.moe.moe_ffn`` on one device, and with the config's 1.25 on [4,
+    2048, 2048] (drops: the tokens' mean ``EP_SKEW`` skews the routing)
+    held to ``moe_ffn_ep`` on a one-rank NCCL world,
+    every rank's output within relative L2 2^-8 (a rank's slots sit at
+    its own place in each expert's product, so the ranks' outputs may
+    differ in their last bits); then (e)
+    the capacity-8 call on the NCCL world held to ``moe_ffn`` too.
+    Prints the drops, the wall of one call across the world and its peak
+    memory."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh, one_rank_world, run_ranks
+    from repro_torch.nn.moe import moe_ffn
+    from repro_torch.parallel import moe_ffn_ep
+
+    base = configs.get_config("qwen3-moe-30b-a3b")
+    p = moe_layer(base, seed=21)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    runs = {}
+    for label, B, cf in EP_RUNS:
+        cfg = dataclasses.replace(base, capacity_factor=cf)
+        x = (torch.randn(B, 2048, cfg.d_model, generator=gen,
+                         device="cuda") + EP_SKEW).bfloat16()
+
+        def rank(r, x=x, cfg=cfg):
+            mesh = make_mesh((EP_RANKS,), ("model",), "cuda")
+            return timed_in_ranks(lambda: moe_ffn_ep(x, p, cfg, mesh))
+
+        torch.cuda.reset_peak_memory_stats()
+        outs, wall = sync_time(lambda: run_ranks(EP_RANKS, rank))
+        peak = torch.cuda.max_memory_allocated()
+        ys = [y for y, _ in outs]
+        for y in ys:
+            check_finite(f"moe_ffn_ep {label}", y)
+        runs[label] = dict(cfg=cfg, x=x, ys=ys, drops=ep_drops(x, p, cfg),
+                           call_s=max(t for _, t in outs), world_s=wall,
+                           peak=peak)
+    with one_rank_world("nccl"):
+        nccl = {label: moe_ffn_ep(run["x"], p, run["cfg"])
+                for label, run in runs.items()}
+    dense, _ = moe_ffn(runs["generous"]["x"], p, runs["generous"]["cfg"])
+    held = {"generous": (dense, "nn.moe.moe_ffn on one device"),
+            "config": (nccl["config"], "moe_ffn_ep on a one-rank NCCL "
+                       "world")}
+    for label, run in runs.items():
+        want, what = held[label]
+        rel = max(rel_l2(y, want) for y in run["ys"])
+        if (label == "generous") == bool(run["drops"]):
+            cf = run["cfg"].capacity_factor
+            raise AssertionError(f"capacity factor {cf} dropped "
+                                 f"{run['drops']}")
+        if not rel <= EP_RTOL:
+            raise AssertionError(f"moe_ffn_ep {label}: relative L2 {rel} "
+                                 f"against {what}")
+        B = run["x"].shape[0]
+        log(f"(a) moe_ffn_ep qwen3-moe-30b-a3b layer, {B} x 2048 tokens, "
+            f"capacity factor {run['cfg'].capacity_factor} on {EP_RANKS} "
+            f"thread ranks of one card: {run['drops']} assignments dropped "
+            f"a rank; relative L2 {rel:.3g} against {what} (the worst "
+            f"rank; limit 2^-8); "
+            f"one call {run['call_s'] * 1e3:.2f} ms across the world (its "
+            f"ranks' work serialised on the card; no network), the world's "
+            f"run {run['world_s']:.3f} s; max_memory_allocated "
+            f"{run['peak']} bytes")
+    rel = rel_l2(nccl["generous"], dense)
+    if not rel <= EP_RTOL:
+        raise AssertionError(f"moe_ffn_ep on NCCL: relative L2 {rel}")
+    log(f"(e) moe_ffn_ep on a one-rank NCCL world (128 experts on the rank):"
+        f" capacity factor 8 relative L2 {rel:.3g} against moe_ffn on one "
+        f"device; capacity factor 1.25 is (a)'s reference")
+
+
+def exec_across_ranks(ks) -> dict:
+    """Phase 18 (d): ``tests/test_exec.py``'s cases (the four 8-rank host
+    presets x every strategy x both colorings, 40 messages from seed 11)
+    executed with ``mesh=`` on 8 thread ranks, K1's count set to 0 just
+    before: every rank's delivered matrix bit-equal to ``run_reference``
+    and to the virtual-rank executor, its digest (one K1 launch a rank)
+    within rtol 1e-4 of the float64 bincount; ``time_schedule(mesh=)``'s
+    median (greedy coloring) beside the virtual-rank median.  Returns K1's
+    launches."""
+    from repro_torch.comm.phase import CommPhase
+    from repro_torch.comm.strategies import strategies_for
+    from repro_torch.exec import (COLORINGS, build_executor, build_schedule,
+                                  execute, host_machines, run_reference,
+                                  time_schedule)
+    from repro_torch.launch.mesh import make_rank_mesh, run_ranks
+
+    ks.reset_launches()
+    n, worst, t0 = 0, 0.0, time.perf_counter()
+    medians = {}
+    for name, m in host_machines().items():
+        ph = CommPhase.build(m, *exec_messages(40, 11, (1, 6000), 8),
+                             n_procs=8)
+        for strat in strategies_for(m):
+            for coloring in COLORINGS:
+                sched = build_schedule(ph, strat, coloring=coloring)
+                want = torch.from_numpy(run_reference(sched)).cuda()
+                if not torch.equal(build_executor(sched)(), want):
+                    raise AssertionError(f"{name} {strat}: virtual ranks")
+                timed = coloring == "greedy"
+
+                def rank(r, sched=sched, timed=timed):
+                    mesh = make_rank_mesh(8, "cuda")
+                    got = execute(sched, mesh=mesh)
+                    return got, (time_schedule(sched, mesh=mesh).median_s
+                                 if timed else None)
+
+                outs = run_ranks(8, rank)
+                for (delivered, digest), _ in outs:
+                    if not torch.equal(delivered, want):
+                        raise AssertionError(f"{name} {strat} {coloring}: "
+                                             "delivered across ranks")
+                    worst = max(worst, digest_ok(digest, sched,
+                                                 f"{name} {strat}"))
+                if timed:
+                    medians[name, strat] = (
+                        max(t for _, t in outs),
+                        time_schedule(sched).median_s, sched.n_rounds)
+                n += 1
+    launches = ks.LAUNCHES["segment_reduce"]
+    if launches != 8 * n:
+        raise AssertionError(f"{launches} K1 launches, want {8 * n}")
+    log(f"(d) the executor across ranks: {n} schedules (4 presets x their "
+        f"strategies x both colorings) on 8 thread ranks in "
+        f"{time.perf_counter() - t0:.2f} s, every rank's delivered matrix "
+        f"bit-equal to run_reference and to the virtual ranks, digests "
+        f"within {worst:.3g} (limit 1e-4), {launches} K1 launches")
+    for (name, strat), (ranks_s, virt_s, rounds) in medians.items():
+        log(f"  {name:14s} {strat:13s} {rounds:2d} rounds: time_schedule "
+            f"median across 8 thread ranks {ranks_s * 1e3:.3f} ms (slowest "
+            f"rank), virtual ranks {virt_s * 1e3:.3f} ms")
+    return {"launches": launches}
+
+
+def pipe_stage(cfg, positions):
+    """GPipe's ``stage_fn`` over a model's decoder layers."""
+    from repro_torch.nn.blocks import block_forward
+
+    def stage_fn(layers, x):
+        for lp in layers:
+            x = block_forward(x, lp, cfg, positions)[0]
+        return x
+    return stage_fn
+
+
+def counted_k4_k5(fn):
+    """``fn()`` with K4's and K5's counts set to 0 just before: (result,
+    wall, (K4 launches, K5 launches))."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+
+    fa.reset_launches()
+    ssd.reset_launches()
+    out, wall = sync_time(fn)
+    return out, wall, (fa.LAUNCHES["flash_attention"],
+                       ssd.LAUNCHES["ssd_intra_chunk"])
+
+
+def pipe_across_ranks(model, cfg) -> dict:
+    """Phase 18 (b): ``gpipe`` over hymba-1.5b's 32 layers in 4 stages of
+    8 on 4 thread ranks, 4 microbatches of [1, 2048] embedded tokens in
+    bf16, K4's and K5's counts set to 0 just before (every stage computes
+    on each of the 7 ticks: 224 launches each, 128 useful), held to the
+    32 layers run in order on one device (relative L2 2^-8; 0 expected:
+    the same kernels on the same inputs).  Returns the launches and the
+    microbatches and reference for (e)."""
+    from repro_torch.launch.mesh import make_mesh, run_ranks
+    from repro_torch.parallel import gpipe, stack_stages
+
+    S, M, n = PIPE["seq"], PIPE["micro"], PIPE["stages"]
+    tokens = torch.from_numpy(prompt_inputs(cfg, M, S, seed=23)["tokens"])
+    positions = torch.arange(S, device="cuda")[None]
+    stage_fn = pipe_stage(cfg, positions)
+    with torch.no_grad():
+        mbs = model.embed[tokens.cuda()][:, None]
+        want, t_seq = sync_time(lambda: torch.stack(
+            [stage_fn(model.layers, x) for x in mbs]))
+    stages = stack_stages(model.layers, n)
+
+    def rank(r):
+        with torch.no_grad():
+            return gpipe(stage_fn, stages, mbs,
+                         make_mesh((n,), ("pod",), "cuda"), "pod")
+
+    torch.cuda.reset_peak_memory_stats()
+    outs, wall, launches = counted_k4_k5(lambda: run_ranks(n, rank))
+    peak = torch.cuda.max_memory_allocated()
+    ticks = M + n - 1
+    expect = ticks * cfg.n_layers
+    if launches != (expect, expect):
+        raise AssertionError(f"gpipe: K4/K5 launches {launches}, want "
+                             f"{expect} each")
+    gap = max(float((y - want).abs().max()) for y in outs)
+    rel = max(rel_l2(y, want) for y in outs)
+    if not rel <= EP_RTOL:
+        raise AssertionError(f"gpipe: relative L2 {rel} against the layers "
+                             "in order")
+    log(f"(b) gpipe hymba-1.5b, {cfg.n_layers} layers in {n} stages of "
+        f"{cfg.n_layers // n} on {n} thread ranks, {M} microbatches of "
+        f"[1, {S}] bf16: {ticks} ticks, K4/K5 launches {launches} ({M} x "
+        f"{cfg.n_layers} = {M * cfg.n_layers} useful); largest absolute gap "
+        f"to the layers in order {gap} (relative L2 {rel:.3g}); the "
+        f"world's run {wall:.3f} s (the ranks' work serialised on the card),"
+        f" the layers in order {t_seq:.3f} s; max_memory_allocated {peak} "
+        "bytes")
+    return {"launches": launches[0], "mbs": mbs, "want": want,
+            "stage_fn": stage_fn}
+
+
+def tree_rel(a: dict, b: dict) -> float:
+    """Relative L2 of the tree ``a`` against ``b`` (float64 sums)."""
+    num = sum(float((a[k].double() - b[k].double()).norm()) ** 2 for k in b)
+    den = sum(float(b[k].double().norm()) ** 2 for k in b)
+    return (num / den) ** 0.5
+
+
+def whole_batch_grads(loss_fn, model, batch) -> dict:
+    """{name: gradient} of ``loss_fn(model, batch)`` on the whole batch on
+    one device, outside any world: the uncompressed mean gradient that
+    (c) holds the compressed one to, by another path than the ranks'
+    shards.  The parameters' ``requires_grad`` is left as it was."""
+    named = dict(model.named_parameters())
+    flags = [p.requires_grad for p in named.values()]
+    model.trainable()
+    try:
+        grads = torch.autograd.grad(loss_fn(model, batch),
+                                    list(named.values()), allow_unused=True)
+    finally:
+        for p, flag in zip(named.values(), flags):
+            p.requires_grad_(flag)
+    return {n: torch.zeros_like(p) if g is None else g
+            for (n, p), g in zip(named.items(), grads)}
+
+
+def compression_rank(loss_fn, model, batch, n: int, steps: int, mesh=None,
+                     whole=None):
+    """One rank of (c): the one-shot compressed mean gradient held entry by
+    entry to half a quantisation step of the uncompressed mean (the mean
+    of the ranks' own gradients, reduced leaf by leaf), then ``steps - 1``
+    more with error feedback.  Returns (worst gap in quantisation steps,
+    the one shot's relative L2 against the uncompressed mean, and on rank
+    0 with ``whole`` given the uncompressed mean's relative L2 against
+    ``whole``, the whole batch's gradient, and the averaged one's against
+    the uncompressed mean; else None for both)."""
+    from repro_torch.parallel import dp_grads_compressed
+    from repro_torch.parallel.collectives import (axis_group, axis_index,
+                                                  pmax, psum)
+    from repro_torch.parallel.compression import shard_grads
+
+    group = axis_group(mesh, "data")
+    first = axis_index(group) == 0 and whole is not None
+    own = shard_grads(loss_fn, model, batch, mesh, "data")
+    mean, errs = dp_grads_compressed(loss_fn, model, batch, mesh, "data")
+    worst, u = 0.0, {}
+    for k in list(own):
+        g = own.pop(k).float()
+        scale = float(pmax(g.abs().max(), group)) / 127.0
+        uk = psum(g, group) / n
+        worst = max(worst, float((mean[k] - uk).abs().max()) / scale
+                    if scale else 0.0)
+        u[k] = uk
+    one_shot = tree_rel(mean, u)
+    u_whole = tree_rel(u, whole) if first else None
+    acc = mean if first else None
+    if not first:
+        u = None
+    del mean
+    for _ in range(steps - 1):      # every rank: each call reduces
+        step, errs = dp_grads_compressed(loss_fn, model, batch, mesh, "data",
+                                         errors=errs)
+        if first:
+            for k in acc:
+                acc[k] += step[k]
+        del step
+    if not first:
+        return worst, one_shot, None, None
+    return worst, one_shot, u_whole, tree_rel(
+        {k: v / steps for k, v in acc.items()}, u)
+
+
+def compression_across_ranks(model, cfg) -> None:
+    """Phase 18 (c): ``dp_grads_compressed`` on hymba-1.5b's ``lm_loss``
+    (remat) at full width, one [1, 2048] token row a rank: 4 thread ranks,
+    or 2 where 4 ranks' state (three float32 trees — mean, error in and
+    out — and the bf16 gradients, a rank) would pass 72 GB.  Each entry of
+    the one-shot mean within half a quantisation step of the uncompressed
+    mean of the ranks' gradients (the bound int8 rounding gives); its
+    relative L2 within ``CMP_ONE_SHOT_REL`` and the 4-step error-feedback
+    average's within ``CMP_AVERAGED_REL`` and below the one shot's; the
+    uncompressed mean within ``CMP_WHOLE_REL`` of the gradient of the
+    mean loss on the whole batch on one device."""
+    from repro_torch.launch.mesh import make_mesh, run_ranks
+    from repro_torch.nn import lm_loss
+
+    n_params = sum(p.numel() for p in model.parameters())
+    state = 14 * n_params
+    n = CMP["ranks"] if CMP["ranks"] * state + model_bytes(model) \
+        <= CMP["max_bytes"] else CMP["fallback_ranks"]
+    tokens = torch.from_numpy(prompt_inputs(cfg, n, CMP["seq"],
+                                            seed=24)["tokens"]).cuda()
+
+    def loss_fn(m, b):
+        return lm_loss(m, cfg, b)[0]
+
+    whole = whole_batch_grads(loss_fn, model, {"tokens": tokens})
+
+    def rank(r):
+        mesh = make_mesh((n,), ("data",), "cuda")
+        return compression_rank(loss_fn, model, {"tokens": tokens}, n,
+                                CMP["steps"], mesh, whole)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    outs, wall = sync_time(lambda: run_ranks(n, rank))
+    peak = torch.cuda.max_memory_allocated()
+    del whole
+    worst = max(w for w, _, _, _ in outs)
+    one_shot, u_whole, averaged = outs[0][1:]
+    if not worst <= CMP_HALF_STEP:
+        raise AssertionError(f"compressed mean off by {worst} quantisation "
+                             "steps")
+    if not one_shot <= CMP_ONE_SHOT_REL:
+        raise AssertionError(f"one-shot compressed mean: relative L2 "
+                             f"{one_shot} (limit {CMP_ONE_SHOT_REL})")
+    if not averaged <= CMP_AVERAGED_REL or not averaged < one_shot:
+        raise AssertionError(f"error feedback: {averaged} against the one "
+                             f"shot {one_shot} (limit {CMP_AVERAGED_REL})")
+    if not u_whole <= CMP_WHOLE_REL:
+        raise AssertionError(f"the ranks' mean gradient: relative L2 "
+                             f"{u_whole} against the whole batch's (limit "
+                             f"{CMP_WHOLE_REL})")
+    log(f"(c) dp_grads_compressed hymba-1.5b lm_loss, {n} thread ranks of "
+        f"[1, {CMP['seq']}] tokens ({'4' if n == 4 else '2: 4 ranks would '
+        f'hold {4 * state + model_bytes(model)} bytes'}; {n_params} "
+        f"parameters): every entry within {worst:.4f} quantisation steps "
+        f"of the uncompressed mean (limit 0.5); relative L2 one shot "
+        f"{one_shot:.4g} (limit {CMP_ONE_SHOT_REL}; the reference's bound "
+        f"on its 16 x 4 linear model 0.02), {CMP['steps']}-step "
+        f"error-feedback average {averaged:.4g} (limit {CMP_AVERAGED_REL});"
+        f" the uncompressed mean {u_whole:.4g} from the whole batch's "
+        f"gradient on one device (limit {CMP_WHOLE_REL}); the world's run "
+        f"{wall:.2f} s; max_memory_allocated {peak} bytes")
+
+
+def nccl_one_rank(model, cfg, pipe) -> int:
+    """Phase 18 (e) for (b) and (c) and a schedule, on a one-rank NCCL
+    world: ``gpipe`` with one stage of 32 layers on the 4 microbatches
+    (K4/K5 launched 4 x 32 times) held to the layers in order, the
+    compressed mean gradient of one [1, 2048] row within half a step of
+    its uncompressed mean, and the one-rank schedules of every strategy
+    on ``lassen_8`` through ``execute(mesh=)`` equal to ``run_reference``.
+    Returns K4's launches."""
+    from repro_torch.comm.phase import CommPhase
+    from repro_torch.comm.strategies import strategies_for
+    from repro_torch.exec import build_schedule, execute, lassen_8
+    from repro_torch.exec import run_reference
+    from repro_torch.launch.mesh import make_rank_mesh, one_rank_world
+    from repro_torch.nn import lm_loss
+    from repro_torch.parallel import gpipe
+
+    tokens = torch.from_numpy(prompt_inputs(cfg, 1, CMP["seq"],
+                                            seed=24)["tokens"]).cuda()
+    with one_rank_world("nccl"):
+        with torch.no_grad():
+            y, wall, launches = counted_k4_k5(lambda: gpipe(
+                pipe["stage_fn"], [list(model.layers)], pipe["mbs"]))
+        want = PIPE["micro"] * cfg.n_layers
+        gap = float((y - pipe["want"]).abs().max())
+        if launches != (want, want) or not rel_l2(y, pipe["want"]) \
+                <= EP_RTOL:
+            raise AssertionError(f"gpipe on NCCL: launches {launches}, gap "
+                                 f"{gap}")
+        worst, one_shot, _, _ = compression_rank(
+            lambda m, b: lm_loss(m, cfg, b)[0], model, {"tokens": tokens},
+            1, 1)
+        if not worst <= CMP_HALF_STEP:
+            raise AssertionError(f"compression on NCCL: {worst} steps")
+        m = lassen_8()
+        for strat in strategies_for(m):
+            sched = build_schedule(CommPhase.build(
+                m, [0, 0], [0, 0], [100.0, 200.0], n_procs=1), strat)
+            got, _ = execute(sched, mesh=make_rank_mesh(1, "cuda"))
+            if not torch.equal(got.cpu(), torch.from_numpy(
+                    run_reference(sched))):
+                raise AssertionError(f"one-rank {strat} on NCCL")
+    log(f"(e) on a one-rank NCCL world: gpipe of one 32-layer stage, K4/K5 "
+        f"launches {launches}, largest absolute gap {gap} to the layers in "
+        f"order ({wall:.3f} s); compressed gradient of one row within "
+        f"{worst:.4f} steps (relative L2 {one_shot:.4g}); the one-rank "
+        f"schedules of {len(strategies_for(m))} strategies equal to "
+        "run_reference")
+    return launches[0]
+
+
+def across_ranks(ks) -> dict:
+    """Phase 18: the expert all-to-all, GPipe, the compressed all-reduce
+    and the executor across ranks, as ``torch.distributed`` programs on
+    worlds of ranks as threads of this process (``launch.mesh.run_ranks``:
+    every rank computes on the one card and the threaded group's
+    collectives are copies on it), and on a one-rank NCCL world.  Returns
+    the launches for the kernels line."""
+    from repro_torch import configs
+    from repro_torch.nn import init_params
+
+    t0 = time.perf_counter()
+    ep_across_ranks()
+    torch.cuda.empty_cache()
+    k1 = exec_across_ranks(ks)
+    cfg = configs.get_config("hymba-1.5b")
+    model = init_params(cfg, seed=0)
+    pipe = pipe_across_ranks(model, cfg)
+    compression_across_ranks(model, cfg)
+    nccl = nccl_one_rank(model, cfg, pipe)
+    k4_k5 = {"launches": pipe["launches"], "nccl_launches": nccl}
+    del model, pipe
+    torch.cuda.empty_cache()
+    log(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    return {"segment_reduce": k1, "flash_attention": k4_k5,
+            "ssd_intra_chunk": dict(k4_k5)}
+
+
+# -- the kernels line: K4 and K5 figures -------------------------------------
 
 def k4_call_figures(fa, q, k, v, causal) -> dict:
     """CUDA-event times of one K4 call (the wrapper, the launch alone, the
@@ -4778,8 +5301,10 @@ def main() -> int:
     model_rows[0]["rest_of_nn"] = rest_of_nn()
     trained = training()
     dry = dry_run(ks, clock_mhz * 1e6)
+    ranks = across_ranks(ks)
     for row in model_rows:          # K4 and K5: their launches and summed
-        row["train"] = trained[row["name"]]   # figures training hymba
+        row["train"] = trained[row["name"]]   # figures training hymba,
+        row["ranks"] = ranks[row["name"]]     # their launches in gpipe
     rows = kernel_rows(ks, launches, captured, clock_mhz * 1e6)
     for row in rows:        # K1 and K2: their calls on the registry sweep,
         row["registry"] = registry[row["name"]]   # on delta re-pricing, on
@@ -4789,6 +5314,7 @@ def main() -> int:
         row["verify"] = verify[row["name"]]       # check; K1's on the
     rows[0]["collectives"] = collectives["segment_reduce"]  # collectives
     rows[0]["dryrun"] = dry["segment_reduce"]      # and on the dry run
+    rows[0]["ranks"] = ranks["segment_reduce"]     # and across ranks
     rows.append(k3_row(*k3_run))
     rows.extend(model_rows)
     log(f"paper measurements launches (Figs. 10-11 at full width): "
@@ -4807,6 +5333,11 @@ def main() -> int:
         f"{collectives['segment_reduce']['launches']}")
     log(f"dry run launches: segment_reduce "
         f"{dry['segment_reduce']['launches']}")
+    log(f"across ranks launches: segment_reduce "
+        f"{ranks['segment_reduce']['launches']}, flash_attention and "
+        f"ssd_intra_chunk {ranks['flash_attention']['launches']} each on 4 "
+        f"thread ranks and {ranks['flash_attention']['nccl_launches']} on "
+        "NCCL")
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ of a bound phase to permutation rounds (:mod:`repro_torch.exec.plan`); the
 serial numpy executor replays them as the bit-identity oracle
 (:mod:`repro_torch.exec.reference`, whose digest sums through K1); the
 virtual-rank executor runs them on the device, each simulated rank a row
-of one tensor (:mod:`repro_torch.exec.lower`); timed runs and ordering
+of one tensor, or, given a rank mesh, each simulated rank a member of its
+process group (:mod:`repro_torch.exec.lower`); timed runs and ordering
 comparisons live in :mod:`repro_torch.exec.measure`; fitted parameter
 tables from recorded sweeps in :mod:`repro_torch.exec.calibrate`; and
 :mod:`repro_torch.exec.presets` ships the 8-rank host-scale machines.

@@ -22,6 +22,14 @@ int32 and the adds touch disjoint real columns, so the result is
 bit-identical to the serial numpy walk of the same tables
 (:func:`repro_torch.exec.reference.run_reference`).
 
+With ``mesh=`` (a 1-D ``("rank",)`` device mesh of ``schedule.n_procs``
+ranks, :func:`repro_torch.launch.mesh.make_rank_mesh`) the schedule runs
+as the reference runs it, one simulated rank a member of the mesh's
+group: each rank holds its own rows, and a round is one
+:func:`~repro_torch.parallel.collectives.ppermute` of the rank's ``pack``
+slots (one message a pair of the round's ``perm``) and the ``stage`` and
+``final`` scatter-adds of what it received.
+
 The round step is not a TPU kernel in the reference (``ppermute`` and
 ``.at[].add``, no Pallas), so it stays torch operations.  The executor
 returns the delivered matrix on the device; the reference copies it to the
@@ -33,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.collectives import all_gather, axis_index, ppermute
 
 from .plan import ExecSchedule
 from .reference import delivered_digest
@@ -62,7 +71,7 @@ def _flat(rows: np.ndarray, table: np.ndarray, width: int) -> np.ndarray:
             + table[rows].astype(np.int64)).ravel()
 
 
-def build_executor(schedule: ExecSchedule, device=None):
+def build_executor(schedule: ExecSchedule, device=None, mesh=None):
     """Upload ``schedule`` to ``device`` (``None`` = CUDA) and return a
     zero-argument callable that runs it and returns the delivered
     ``(n_procs, n_units)`` int32 tensor on the device (sink trimmed).
@@ -71,8 +80,15 @@ def build_executor(schedule: ExecSchedule, device=None):
     scatter of ``payload`` at ``(unit_src, u)`` and, for units already at
     home, at ``(unit_dst, u)``) and runs every round; it is what
     :func:`repro_torch.exec.measure.time_schedule` times.
+
+    With ``mesh`` (a 1-D device mesh of ``schedule.n_procs`` ranks; called
+    on every rank of it) the callable runs this rank's part and returns
+    its own delivered row ``(n_units,)``; see :func:`_rank_executor`.
+    Raises ``ValueError`` when the mesh holds another number of ranks.
     """
     dev = resolve_device(device)
+    if mesh is not None:
+        return _rank_executor(schedule, dev, mesh)
     P, U = schedule.n_procs, schedule.n_units
     W = U + 1
     units = np.arange(U, dtype=np.int64)
@@ -110,11 +126,52 @@ def build_executor(schedule: ExecSchedule, device=None):
     return run
 
 
-def execute(schedule: ExecSchedule, device=None):
+def _rank_executor(schedule: ExecSchedule, dev: torch.device, mesh):
+    """This rank's executor of ``schedule`` on ``mesh``'s group: its rows
+    of the starting buffers and of each round's tables on ``dev``; a run
+    starts from copies of its rows, and each round gathers its ``pack``
+    slots (the snapshot), moves them with one ``ppermute`` of the round's
+    ``perm`` and scatter-adds what arrived at ``stage`` and ``final``.
+    The sink column is zeroed after each round, as on one device."""
+    if mesh.size() != schedule.n_procs:
+        raise ValueError(f"the mesh holds {mesh.size()} ranks, the schedule "
+                         f"{schedule.n_procs}")
+    group = mesh.get_group()
+    r = axis_index(group)
+    U = schedule.n_units
+    hold0, deliv0 = initial_buffers(schedule)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    hold_row, deliv_row = put(hold0[r]), put(deliv0[r])
+    rounds = [(rnd.perm, put(rnd.pack[r].astype(np.int64)),
+               put(rnd.stage[r].astype(np.int64)),
+               put(rnd.final[r].astype(np.int64)))
+              for phase in schedule.phases for rnd in phase.rounds]
+
+    def run() -> torch.Tensor:
+        hold, deliv = hold_row.clone(), deliv_row.clone()
+        for perm, pack, stage, final in rounds:
+            recv = ppermute(hold[pack], perm, group)
+            hold.index_add_(0, stage, recv)
+            deliv.index_add_(0, final, recv)
+            hold[U:].zero_()
+            deliv[U:].zero_()
+        return deliv[:U]
+
+    return run
+
+
+def execute(schedule: ExecSchedule, device=None, mesh=None):
     """Run ``schedule`` once on ``device`` (``None`` = CUDA) and return
     ``(delivered, digest)``: the delivered int32 ``(n_procs, n_units)``
     tensor and its per-rank payload totals through K1
     (:func:`repro_torch.exec.reference.delivered_digest`), both on the
-    device."""
-    delivered = build_executor(schedule, device=device)()
+    device.  With ``mesh`` (as in :func:`build_executor`; called on every
+    rank) each rank runs its part, the rows are all-gathered and every
+    rank returns the whole matrix and its digest."""
+    delivered = build_executor(schedule, device=device, mesh=mesh)()
+    if mesh is not None:
+        delivered = all_gather(delivered, mesh.get_group())
     return delivered, delivered_digest(delivered, schedule)

@@ -12,7 +12,10 @@ comparable rankings.
 
 Port note: a timed run is a host wall time closed by
 ``torch.cuda.synchronize()`` on the card (the executor returns before the
-device finishes); on the CPU torch runs synchronously.
+device finishes); on the CPU torch runs synchronously.  With ``mesh=``
+each rank times its own part of the run, collectives included; where the
+ranks are threads sharing one card (``launch.mesh.run_ranks``) a time is
+of the whole world's work serialised on that card, not a network's.
 """
 from __future__ import annotations
 
@@ -42,13 +45,15 @@ class Measurement:
     n_rounds: int
 
 
-def time_schedule(schedule: ExecSchedule, *, device=None, reps: int = 5,
-                  warmup: int = 2) -> Measurement:
+def time_schedule(schedule: ExecSchedule, *, device=None, mesh=None,
+                  reps: int = 5, warmup: int = 2) -> Measurement:
     """Time ``schedule`` on ``device`` (``None`` = CUDA): ``warmup``
     untimed runs, then ``reps`` timed runs, median reported.  Each run's
-    wall time ends in a device synchronize on the card."""
+    wall time ends in a device synchronize on the card.  ``mesh`` as in
+    :func:`repro_torch.exec.lower.build_executor` (called on every rank,
+    each timing its own part)."""
     dev = resolve_device(device)
-    run = build_executor(schedule, device=dev)
+    run = build_executor(schedule, device=dev, mesh=mesh)
 
     def sync():
         if dev.type == "cuda":
@@ -67,29 +72,29 @@ def time_schedule(schedule: ExecSchedule, *, device=None, reps: int = 5,
                        times_s=tuple(times), n_rounds=schedule.n_rounds)
 
 
-def launch_overhead(phase: CommPhase, *, device=None, reps: int = 5,
-                    warmup: int = 2) -> float:
+def launch_overhead(phase: CommPhase, *, device=None, mesh=None,
+                    reps: int = 5, warmup: int = 2) -> float:
     """The fixed cost of launching a lowered schedule, in seconds: the
     median time of the ``standard`` schedule of an *empty* exchange bound
     to ``phase``'s machine (same rank count, zero messages — all launch,
-    no transport).  ``device`` / ``reps`` / ``warmup`` as in
+    no transport).  ``device`` / ``mesh`` / ``reps`` / ``warmup`` as in
     :func:`time_schedule`."""
     empty = CommPhase.build(phase.machine, [], [], [],
                             n_procs=phase.n_procs)
     sched = build_schedule(empty, "standard")
-    return time_schedule(sched, device=device, reps=reps,
+    return time_schedule(sched, device=device, mesh=mesh, reps=reps,
                          warmup=warmup).median_s
 
 
 def measure_strategies(phase: CommPhase, strategies=None, *,
                        unit_bytes: float = UNIT_BYTES,
-                       coloring: str = "greedy", device=None, reps: int = 5,
-                       warmup: int = 2) -> dict:
+                       coloring: str = "greedy", device=None, mesh=None,
+                       reps: int = 5, warmup: int = 2) -> dict:
     """Lower and time every strategy of ``phase``: returns ``{strategy:
     (ExecSchedule, Measurement)}``.  ``strategies`` defaults to
     :func:`repro_torch.comm.strategies.strategies_for` the phase's machine;
     ``unit_bytes`` / ``coloring`` feed the planner and ``device`` /
-    ``reps`` / ``warmup`` feed :func:`time_schedule`."""
+    ``mesh`` / ``reps`` / ``warmup`` feed :func:`time_schedule`."""
     dev = resolve_device(device)
     names = (strategies if strategies is not None
              else strategies_for(phase.machine))
@@ -97,8 +102,8 @@ def measure_strategies(phase: CommPhase, strategies=None, *,
     for name in names:
         sched = build_schedule(phase, name, unit_bytes=unit_bytes,
                                coloring=coloring)
-        out[name] = (sched, time_schedule(sched, device=dev, reps=reps,
-                                          warmup=warmup))
+        out[name] = (sched, time_schedule(sched, device=dev, mesh=mesh,
+                                          reps=reps, warmup=warmup))
     return out
 
 

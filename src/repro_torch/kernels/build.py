@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # serialises builds within a process: two threads making a first call at
 # once would otherwise both compile the same library
 _BUILD_LOCK = threading.Lock()
+# serialises the launch counts: ranks run as threads launch at once
+_COUNT_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -104,6 +106,15 @@ def kernel(library: str, symbol: str, argtypes: tuple):
     fn.argtypes = [*argtypes, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def count(launches: dict, *names: str) -> None:
+    """Add one to each of ``names`` in the launch counts ``launches``,
+    under a lock: the ranks of ``launch.mesh.run_ranks`` are threads that
+    launch at once, and ``+=`` on a dict entry is no atomic operation."""
+    with _COUNT_LOCK:
+        for name in names:
+            launches[name] += 1
 
 
 def launch(fn, device: torch.device, *args) -> None:

@@ -47,7 +47,7 @@ import os
 
 import torch
 
-from .build import build_kernels, kernel, launch  # noqa: F401
+from .build import build_kernels, count, kernel, launch  # noqa: F401
 
 #: Kernel launches per wrapper since the counts were last reset.
 LAUNCHES = {"segment_reduce": 0, "segment_reduce_smem": 0,
@@ -70,7 +70,7 @@ def reset_launches() -> None:
 
 def _launch(name: str, device: torch.device, *args) -> None:
     launch(kernel(name, name, _ARGTYPES[name]), device, *args)
-    LAUNCHES[name] += 1
+    count(LAUNCHES, name)
 
 
 # -- the post-kernel check ------------------------------------------------------
@@ -291,7 +291,7 @@ def _segment_reduce_cuda(values: torch.Tensor, ids: torch.Tensor,
         _launch("segment_reduce", values.device, values.data_ptr(),
                 ids.data_ptr(), values.numel(), n_seg, out.data_ptr(),
                 int(path == "smem"))
-        LAUNCHES[f"segment_reduce_{path}"] += 1
+        count(LAUNCHES, f"segment_reduce_{path}")
     return out[:n_seg], out[n_seg:2 * n_seg]
 
 

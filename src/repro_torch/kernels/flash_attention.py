@@ -37,7 +37,7 @@ import ctypes
 import torch
 from torch.distributed.tensor import DTensor
 
-from .build import kernel, launch
+from .build import count, kernel, launch
 
 #: Kernel launches since the counts were last reset: every launch, and
 #: those of the tensor-core (bfloat16) kernel alone.
@@ -167,8 +167,8 @@ def _flash_attention_cuda(q, k, v, causal: bool) -> torch.Tensor:
     launch(kernel("flash_attention", "flash_attention_fwd", _ARGTYPES),
            q.device, *ptrs, B, S, H, k.shape[2], D, int(bool(causal)),
            int(tc), 1.0 / D ** 0.5)
-    LAUNCHES["flash_attention"] += 1
-    LAUNCHES["flash_attention_tc"] += int(tc)
+    count(LAUNCHES, "flash_attention", *(["flash_attention_tc"] if tc
+                                         else []))
     return out
 
 

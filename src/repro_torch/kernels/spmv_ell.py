@@ -36,7 +36,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from .build import kernel, launch
+from .build import count, kernel, launch
 
 #: Kernel launches since the count was last reset.
 LAUNCHES = {"spmv_block_ell": 0}
@@ -307,5 +307,5 @@ def _spmv_block_ell_cuda(blocks: torch.Tensor, cols: torch.Tensor,
                blocks.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
                y.numel(), max_bpr, bs, int(blocks.dtype == torch.bfloat16),
                int(x.dtype == torch.bfloat16), lanes, int(skip))
-        LAUNCHES["spmv_block_ell"] += 1
+        count(LAUNCHES, "spmv_block_ell")
     return y

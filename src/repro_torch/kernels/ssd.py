@@ -42,7 +42,7 @@ import ctypes
 import torch
 from torch.distributed.tensor import DTensor
 
-from .build import kernel, launch
+from .build import count, kernel, launch
 
 #: Kernel launches since the counts were last reset: every launch, and
 #: those on the tensor cores (all of them: K5 has no other kernel).
@@ -170,8 +170,7 @@ def _ssd_intra_chunk_cuda(dtx, Bm, Cm, cumA, G, heads, q, n, p):
         launch(kernel("ssd", "ssd_intra_chunk", _ARGTYPES), dtx.device,
                dtx.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), cumA.data_ptr(),
                y.data_ptr(), s.data_ptr(), strides, G, heads, q, n, p)
-        LAUNCHES["ssd_intra_chunk"] += 1
-        LAUNCHES["ssd_intra_chunk_tc"] += 1
+        count(LAUNCHES, "ssd_intra_chunk", "ssd_intra_chunk_tc")
     return y, s
 
 

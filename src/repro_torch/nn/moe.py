@@ -145,19 +145,26 @@ class Dispatch(NamedTuple):
     counts: torch.Tensor
 
 
-def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
-    """Top-k routing of token groups ``xf`` [D, T, d] in float32: returns
-    (gates [D, T, K] renormalised to sum 1, expert ids [D, T, K], the
-    router probabilities summed over every token [E], the assignments of
-    each expert over every group [E]).
+def top_k(logits: torch.Tensor, K: int):
+    """The router's choice from its logits [..., E]: (the softmax in
+    float32 [..., E], the top ``K`` gates renormalised to sum 1 [..., K],
+    their expert ids [..., K]).
 
     The experts are ranked by a stable descending sort of the softmax, so
     ties go to the lower expert id, as ``jax.lax.top_k`` breaks them."""
-    E, K = cfg.n_experts, cfg.n_experts_active
-    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+    probs = torch.softmax(logits.float(), dim=-1)
     ranked, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = ranked[..., :K], ids[..., :K]
-    gates = gates / gates.sum(dim=-1, keepdim=True)
+    return probs, gates / gates.sum(dim=-1, keepdim=True), idx
+
+
+def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
+    """Top-k routing of token groups ``xf`` [D, T, d] in float32
+    (:func:`top_k`): returns (gates [D, T, K] renormalised to sum 1,
+    expert ids [D, T, K], the router probabilities summed over every
+    token [E], the assignments of each expert over every group [E])."""
+    E, K = cfg.n_experts, cfg.n_experts_active
+    probs, gates, idx = top_k(xf.float() @ router.float(), K)
     experts_ = torch.arange(E, device=xf.device)
     hits = (idx.reshape(-1)[:, None] == experts_).sum(0).float()
     return gates, idx, probs.sum(dim=(0, 1)), hits

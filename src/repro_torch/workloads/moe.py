@@ -1,7 +1,8 @@
 """MoE expert-parallel all-to-all traffic as irregular point-to-point phases.
 
-The optimized MoE path in this repo (:mod:`repro.parallel.ep_a2a`) moves
-tokens between ranks with two ``jax.lax.all_to_all`` exchanges: **dispatch**
+The optimized MoE path in this repo (:mod:`repro_torch.parallel.ep_a2a`)
+moves tokens between ranks with two ``all_to_all_single`` exchanges:
+**dispatch**
 ships every routed token from its origin rank to the rank owning its expert,
 and **combine** returns the expert outputs along the exact reverse routes.
 Which rank owes how many tokens to which rank is decided by the *router* —
@@ -10,13 +11,13 @@ irregular point-to-point phase the paper's node-aware + queue-search model
 prices: per-pair sizes follow the token-routing histogram, not a regular
 collective schedule.
 
-This module derives those phases without running any jax: a routing-count
+This module derives those phases without running the model: a routing-count
 histogram ``counts[rank, expert]`` is lowered to ``(src, dst, size)``
 triples (:func:`pattern_from_counts`) that mirror the ``ep_a2a`` schedule —
 per-(rank, expert) capacity clipping included — with the histogram itself
 coming either from a seeded numpy **router forward pass** (the same
-logits → softmax → top-K math as :func:`repro.nn.moe.moe_ffn`, reproduced
-in numpy so the derivation runs where jax is absent) or from a seeded
+logits → softmax → top-K math as :func:`repro_torch.nn.moe.moe_ffn`,
+reproduced in numpy so the derivation needs no device) or from a seeded
 synthetic **top-K multinomial** with a skewed expert-popularity prior.
 
 RNG contract (pinned by the property tests): every function takes an
@@ -26,9 +27,10 @@ calls, processes and platforms; no global numpy state is read or written.
 
 Port note: a copy of ``repro.workloads.moe``, host numpy throughout (the
 float32 router product and the stable argsort as written there), so every
-histogram and pattern is bit-equal to the reference's.  The jax modules
-named above are the reference's: ``moe_ffn``'s port is
-:mod:`repro_torch.nn.moe`, ``ep_a2a``'s is ROADMAP queue item 15.
+histogram and pattern is bit-equal to the reference's.  The slots
+:func:`repro_torch.parallel.ep_a2a.moe_ffn_ep` sends each peer are the
+token counts :func:`pattern_from_counts` derives from its routing
+histogram and capacity (``tests/test_torch_multirank.py``).
 """
 from __future__ import annotations
 
@@ -83,10 +85,11 @@ class MoeA2APattern:
 def a2a_capacity(tokens_per_rank: int, cfg: ArchConfig) -> int:
     """Per-expert capacity of the ``ep_a2a`` dispatch buffer.
 
-    The same formula :func:`repro.parallel.ep_a2a.moe_ffn_ep` computes
-    inline from ``tokens_per_rank`` (its per-shard token count ``T``) and
-    ``cfg`` (``n_experts_active``, ``capacity_factor``, ``n_experts``);
-    kept in sync by the jax cross-check in ``tests/test_workloads.py``.
+    The same formula :func:`repro_torch.parallel.ep_a2a.moe_ffn_ep`
+    computes inline from ``tokens_per_rank`` (its per-rank token count
+    ``T``) and ``cfg`` (``n_experts_active``, ``capacity_factor``,
+    ``n_experts``); kept in sync by the buffer shape checked in
+    ``tests/test_torch_multirank.py``.
     """
     return max(8, int(tokens_per_rank * cfg.n_experts_active
                       * cfg.capacity_factor // cfg.n_experts) + 1)
@@ -126,16 +129,15 @@ def router_routing_counts(cfg: ArchConfig, n_ranks: int, tokens_per_rank: int,
                           seed: int = 0) -> np.ndarray:
     """Routing histogram from an actual seeded router forward pass (numpy).
 
-    Runs the router math of :func:`repro.nn.moe.moe_ffn` — token activations
-    × router weight matrix → float32 logits → softmax → top-K — on seeded
-    Gaussian activations and a seeded Gaussian router ``[cfg.d_model,
-    cfg.n_experts]`` (scaled ``1/sqrt(d)``), entirely in numpy so the
-    derivation runs where jax is absent.  Top-K uses a stable descending
-    argsort, which matches ``jax.lax.top_k``'s lowest-index tie-breaking on
-    identical logits (asserted against the real jax routing in
-    ``tests/test_workloads.py`` when jax is importable).  Returns counts
-    ``[n_ranks, n_experts]``; ``tokens_per_rank`` tokens are routed per
-    rank, ``seed`` per the module RNG contract.
+    Runs the router math of :func:`repro_torch.nn.moe.moe_ffn` — token
+    activations × router weight matrix → float32 logits → softmax → top-K —
+    on seeded Gaussian activations and a seeded Gaussian router
+    ``[cfg.d_model, cfg.n_experts]`` (scaled ``1/sqrt(d)``), entirely in
+    numpy so the derivation needs no device.  Top-K uses a stable
+    descending argsort, which matches the model's lowest-index
+    tie-breaking on identical logits.  Returns counts ``[n_ranks,
+    n_experts]``; ``tokens_per_rank`` tokens are routed per rank, ``seed``
+    per the module RNG contract.
     """
     rng = np.random.default_rng(seed)
     d, E, K = cfg.d_model, cfg.n_experts, cfg.n_experts_active
@@ -162,15 +164,16 @@ def pattern_from_counts(counts, d_model: int, capacity: int,
 
     ``counts[r, e]`` tokens routed by rank ``r`` to expert ``e`` are clipped
     at ``capacity`` slots per (rank, expert) — the ``[E, C]`` dispatch
-    buffer of :func:`repro.parallel.ep_a2a.moe_ffn_ep` drops over-capacity
-    tokens per *source* rank — then summed over each destination rank's
-    contiguous expert shard (expert ``e`` lives on rank ``e // (E // M)``,
-    the ``shard_map``-over-experts layout).  Dispatch message sizes are
-    ``tokens * d_model * act_bytes``; self-pairs (tokens staying on their
-    origin rank) are local buffer traffic, not communication, and are
-    dropped.  The combine exchange reuses the same pair volumes with src/dst
-    swapped.  Deterministic: no randomness, so equal ``counts`` (plus equal
-    ``d_model`` / ``capacity`` / ``act_bytes``) give bit-identical patterns.
+    buffer of :func:`repro_torch.parallel.ep_a2a.moe_ffn_ep` drops
+    over-capacity tokens per *source* rank — then summed over each
+    destination rank's contiguous expert shard (expert ``e`` lives on rank
+    ``e // (E // M)``, the experts split on their leading dim).  Dispatch
+    message sizes are ``tokens * d_model * act_bytes``; self-pairs (tokens
+    staying on their origin rank) are local buffer traffic, not
+    communication, and are dropped.  The combine exchange reuses the same
+    pair volumes with src/dst swapped.  Deterministic: no randomness, so
+    equal ``counts`` (plus equal ``d_model`` / ``capacity`` / ``act_bytes``)
+    give bit-identical patterns.
     """
     counts = np.asarray(counts, dtype=np.int64)
     if counts.ndim != 2:

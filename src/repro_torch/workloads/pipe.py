@@ -1,6 +1,6 @@
 """Pipeline-parallel stage-boundary traffic as point-to-point messages.
 
-The GPipe schedule in :func:`repro.parallel.pipeline.gpipe` runs ``M``
+The GPipe schedule in :func:`repro_torch.parallel.pipeline.gpipe` runs ``M``
 microbatches through ``S`` stages in ``M + S - 1`` ticks; every tick each
 stage ``ppermute``\\ s its activation ``[microbatch, d_model]`` to the next
 stage.  The *useful* payload — what a real point-to-point lowering would

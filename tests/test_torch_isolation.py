@@ -65,10 +65,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
     # slice's (nn, configs, launch, serve, K4, K5), the workload
     # registry's, delta re-pricing's (comm.delta, sparse.optimize), the
     # strategy service's, the execution layer's, collective pricing's
-    # (core.hlo, core.decompose) and training's (train, data, ckpt, the
-    # two drivers) among them
+    # (core.hlo, core.decompose), training's (train, data, ckpt, the
+    # two drivers) and the programs across ranks (parallel.collectives,
+    # compression, pipeline, ep_a2a) among them
     mods = set(res.stdout.split())
-    assert len(mods) >= 86
+    assert len(mods) >= 90
     assert {"repro_torch.core.hlo", "repro_torch.core.decompose",
             "repro_torch.serve.strategy", "repro_torch.serve.admission",
             "repro_torch.serve.cache", "repro_torch.comm.health",
@@ -84,6 +85,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
             "repro_torch.launch.train", "repro_torch.launch.serve",
             "repro_torch.parallel", "repro_torch.parallel.sharding",
             "repro_torch.parallel.context", "repro_torch.parallel.autotune",
+            "repro_torch.parallel.collectives",
+            "repro_torch.parallel.compression",
+            "repro_torch.parallel.pipeline", "repro_torch.parallel.ep_a2a",
             "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
             "repro_torch.launch.roofline", "repro_torch.launch.perf"} <= mods
 
@@ -174,7 +178,9 @@ print(" ".join(left))
     ("ckpt", ("save_checkpoint", "load_checkpoint", "latest_step",
               "CheckpointManager"), ()),
     ("parallel", ("MeshPlan", "make_mesh_plan", "param_pspecs",
-                  "batch_pspecs", "cache_pspecs", "shardings"), ())])
+                  "batch_pspecs", "cache_pspecs", "shardings"),
+     ("quantize_int8", "compressed_psum", "dp_grads_compressed",
+      "stack_stages", "gpipe", "moe_ffn_ep"))])
 def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     # every name of repro.<pkg>.__all__ that the port defines in the
     # counterpart submodule is the same object at repro_torch.<pkg>, and
@@ -194,6 +200,55 @@ def test_packages_export_every_ported_name_of_the_reference(pkg, must, extra):
     if pkg == "comm":
         # the port has one backend, so no STACK_BACKENDS
         assert left == ["STACK_BACKENDS"], left
+
+
+# Every module of the JAX package has its counterpart in the port, but the
+# three ROADMAP exempts (the array-namespace shim, the kernels' jnp oracle
+# and the shard_map shim the port replaces with torch.distributed).
+_EXEMPT = {"comm/xp.py", "kernels/ref.py", "parallel/_jax_compat.py"}
+
+
+def test_the_port_has_every_module_of_the_reference():
+    ref = {p.relative_to(ROOT / "src" / "repro").as_posix()
+           for p in (ROOT / "src" / "repro").rglob("*.py")}
+    port = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+            for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert ref - port == _EXEMPT
+
+
+@pytest.mark.parametrize("mod,names", [
+    ("parallel/compression.py", ("quantize_int8", "compressed_psum",
+                                 "dp_grads_compressed")),
+    ("parallel/pipeline.py", ("stack_stages", "gpipe")),
+    ("parallel/ep_a2a.py", ("_local_dispatch", "moe_ffn_ep")),
+    ("exec/lower.py", ("initial_buffers", "build_executor", "execute")),
+    ("exec/measure.py", ("time_schedule", "launch_overhead",
+                         "measure_strategies"))])
+def test_programs_across_ranks_port_every_function_and_argument(mod, names):
+    # each top-level function of the reference's module (read as text: no
+    # jax) is in the port's with every argument the reference names (the
+    # port's ``mesh`` is a torch DeviceMesh), the public ones exported;
+    # ``compressed_psum`` reduces over a process group where the reference
+    # names a shard_map axis, and the port's digest has one backend, K1
+    renamed = {"axis_name": "group", "digest_backend": None}
+    import ast
+    import importlib
+    import inspect
+    tree = ast.parse((ROOT / "src" / "repro" / mod).read_text())
+    funcs = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
+    assert set(names) <= set(funcs)
+    port = importlib.import_module(
+        "repro_torch." + mod[:-3].replace("/", "."))
+    package = importlib.import_module("repro_torch." + mod.split("/")[0])
+    for name in names:
+        f = funcs[name]
+        args = [a.arg for a in f.args.args + f.args.kwonlyargs]
+        if name in ("compressed_psum", "execute"):
+            args = [renamed.get(a, a) for a in args if renamed.get(a, a)]
+        have = inspect.signature(getattr(port, name)).parameters
+        assert set(args) <= set(have), (name, args, list(have))
+        if not name.startswith("_") and name != "initial_buffers":
+            assert getattr(package, name) is getattr(port, name), name
 
 
 def test_entry_points_refuse_to_fall_back_to_cpu(monkeypatch):
