@@ -37,6 +37,8 @@ import ctypes
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
+
 from .build import count, kernel, launch
 
 #: Kernel launches since the counts were last reset: every launch, and
@@ -244,8 +246,11 @@ class FlashAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        return (*flash_attention_backward(q, k, v, out, dout, ctx.causal),
-                None)
+        B, S, H, D = q.shape
+        with obs.span("repro_torch.attn_bwd", B=B, S=S, H=H, KH=k.shape[2],
+                      D=D, causal=bool(ctx.causal)):
+            return (*flash_attention_backward(q, k, v, out, dout,
+                                              ctx.causal), None)
 
 
 def flash_attention_autograd(q, k, v, causal: bool = True) -> torch.Tensor:

@@ -42,6 +42,8 @@ import ctypes
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch import obs
+
 from .build import count, kernel, launch
 
 #: Kernel launches since the counts were last reset: every launch, and
@@ -228,7 +230,8 @@ class SsdIntraChunk(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy, dS):
-        return ssd_intra_chunk_backward(*ctx.saved_tensors, dy, dS)
+        with obs.span("repro_torch.ssd_bwd"):
+            return ssd_intra_chunk_backward(*ctx.saved_tensors, dy, dS)
 
 
 def ssd_intra_chunk_autograd(dtx, Bm, Cm, cumA):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.nn import model as M
 from repro_torch.nn.config import ArchConfig
@@ -23,13 +24,16 @@ def grads_of(model, cfg: ArchConfig, batch: dict, remat: bool = True,
              device=None):
     """(loss, metrics, gradients keyed by parameter name) of ``lm_loss``
     at ``batch``; a parameter the loss does not reach gets zeros."""
-    loss, metrics = M.lm_loss(model, cfg, batch, remat=remat, device=device)
-    named = dict(model.named_parameters())
-    grads = torch.autograd.grad(loss, list(named.values()),
-                                allow_unused=True)
-    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, {
-        name: torch.zeros_like(p) if g is None else g
-        for (name, p), g in zip(named.items(), grads)}
+    with obs.span("repro_torch.grads"):
+        with obs.span("repro_torch.loss"):
+            loss, metrics = M.lm_loss(model, cfg, batch, remat=remat,
+                                      device=device)
+        named = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    allow_unused=True)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, {
+            name: torch.zeros_like(p) if g is None else g
+            for (name, p), g in zip(named.items(), grads)}
 
 
 def split_microbatches(batch: dict, microbatches: int) -> dict:
@@ -108,20 +112,24 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig | None = None,
     opt_cfg = opt_cfg or AdamWConfig()
 
     def train_step(model, opt_state, batch):
-        model.trainable()
-        if microbatches == 1:
-            loss, metrics, grads = grads_of(model, cfg, batch, remat, device)
-        else:
-            slices = split_microbatches(batch, microbatches)
-            loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = zero_grads(model)
-            for i in range(microbatches):
-                loss, metrics = accumulate_microbatch(
-                    model, cfg, slices, i, grads, loss, microbatches, remat,
-                    device)
-        model, opt_state, opt_metrics = adamw_update(model, grads, opt_state,
-                                                     opt_cfg)
-        return model, opt_state, dict(metrics, loss=loss, **opt_metrics)
+        with obs.step("repro_torch.train_step"):
+            model.trainable()
+            if microbatches == 1:
+                loss, metrics, grads = grads_of(model, cfg, batch, remat,
+                                                device)
+            else:
+                slices = split_microbatches(batch, microbatches)
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=model.device)
+                grads = zero_grads(model)
+                for i in range(microbatches):
+                    loss, metrics = accumulate_microbatch(
+                        model, cfg, slices, i, grads, loss, microbatches,
+                        remat, device)
+            with obs.span("repro_torch.optimizer"):
+                model, opt_state, opt_metrics = adamw_update(
+                    model, grads, opt_state, opt_cfg)
+            return model, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step
 
@@ -134,10 +142,12 @@ def make_prefill_step(cfg: ArchConfig, max_seq: int | None = None,
     cache of ``max_seq`` positions (the prompt's length when None), on
     ``device`` (None: CUDA)."""
     def prefill_step(params, batch):
-        return M.prefill(params, cfg, tokens=batch.get("tokens"),
-                         embeds=batch.get("embeds"),
-                         enc_frames=batch.get("frames"), max_seq=max_seq,
-                         device=device)
+        tokens, embeds = batch.get("tokens"), batch.get("embeds")
+        B, L = (tokens if tokens is not None else embeds).shape[:2]
+        with obs.step("repro_torch.prefill_step", B=B, L=L):
+            return M.prefill(params, cfg, tokens=tokens, embeds=embeds,
+                             enc_frames=batch.get("frames"), max_seq=max_seq,
+                             device=device)
     return prefill_step
 
 

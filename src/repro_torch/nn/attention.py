@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.parallel.context import (head_local, is_dtensor,
                                           item_local, merge_dims, model_size,
@@ -56,8 +57,11 @@ def quantize_kv(t: torch.Tensor):
 def _flash(q, k, v, causal: bool):
     """K4 on q, k, v; DTensors through :func:`_heads_local`."""
     def run(q, k, v):
-        return ops.mha_flash(q.contiguous(), k.contiguous(), v.contiguous(),
-                             causal=causal)
+        B, S, H, D = q.shape
+        with obs.span("repro_torch.attn_core", B=B, S=S, H=H, KH=k.shape[2],
+                      D=D, causal=bool(causal)):
+            return ops.mha_flash(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=causal)
 
     return _heads_local(run, q, k, v) if is_dtensor(q) else run(q, k, v)
 
@@ -105,11 +109,12 @@ def attention(x, p, cfg: ArchConfig, positions, causal: bool = True):
     """Full self-attention (prefill): returns (out [B, S, d], (k, v)), with
     ``k`` after RoPE, as the decode cache holds it.  ``positions`` is
     [B, S], or [B, S, 3] under M-RoPE."""
-    q, k, v = _project_qkv(x, p, cfg)
-    if cfg.rope_theta:
-        q, k = _rope_qk(q, k, positions, cfg)
-    out = merge_dims(_flash(q, k, v, causal), 2)
-    return out @ p["wo"], (k, v)
+    with obs.span("repro_torch.attention"):
+        q, k, v = _project_qkv(x, p, cfg)
+        if cfg.rope_theta:
+            q, k = _rope_qk(q, k, positions, cfg)
+        out = merge_dims(_flash(q, k, v, causal), 2)
+        return out @ p["wo"], (k, v)
 
 
 def decode_attention(x, p, cfg: ArchConfig, cache_k, cache_v, pos: int,

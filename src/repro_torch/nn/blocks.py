@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.parallel.context import gather_model, reduce_output as _out
 
 from .attention import attention, cross_attention, decode_attention
@@ -28,11 +29,26 @@ def _ffn(x, lp, cfg: ArchConfig):
     """The block's feed-forward half: (x, aux loss of its MoE layer or
     None)."""
     if cfg.block_kind == "moe":
-        m_out, aux = moe_ffn(_norm(x, lp["ln2"], cfg), lp["moe"], cfg)
+        xn = _norm(x, lp["ln2"], cfg)
+        with obs.span("repro_torch.moe"):
+            m_out, aux = moe_ffn(xn, lp["moe"], cfg)
         return x + _out(m_out), aux
     if cfg.d_ff:
-        x = x + _out(mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type))
+        x = x + _out(_mlp(_norm(x, lp["ln2"], cfg), lp, cfg))
     return x, None
+
+
+def _mlp(xn, lp, cfg: ArchConfig):
+    """The block's dense MLP on its normed input."""
+    with obs.span("repro_torch.mlp"):
+        return mlp(xn, lp["mlp"], cfg.mlp_type)
+
+
+def _ssm(xn, lp, cfg: ArchConfig, collect_cache: bool):
+    """The block's Mamba2 mixer on its normed input (with its decode
+    states when ``collect_cache``)."""
+    with obs.span("repro_torch.ssm"):
+        return ssm_mixer(xn, lp["ssm"], cfg, return_state=collect_cache)
 
 
 # ----------------------------------------------------------- full-seq -------
@@ -48,8 +64,8 @@ def block_forward(x, lp, cfg: ArchConfig, positions, causal: bool = True,
 
     if kind == "ssm":
         # the mixer lays out its own input (``ssm._in_proj``)
-        res = ssm_mixer(norm(x, lp["ln1"], cfg.norm_type, cfg.norm_eps),
-                        lp["ssm"], cfg, return_state=collect_cache)
+        res = _ssm(norm(x, lp["ln1"], cfg.norm_type, cfg.norm_eps), lp,
+                   cfg, collect_cache)
         if collect_cache:
             y, (conv_st, ssd_st) = res
             cache_el.update(conv=conv_st, ssd=ssd_st)
@@ -59,7 +75,7 @@ def block_forward(x, lp, cfg: ArchConfig, positions, causal: bool = True,
     elif kind == "hybrid":
         xn = _norm(x, lp["ln1"], cfg)
         a_out, kv = attention(xn, lp["attn"], cfg, positions, causal=causal)
-        res = ssm_mixer(xn, lp["ssm"], cfg, return_state=collect_cache)
+        res = _ssm(xn, lp, cfg, collect_cache)
         if collect_cache:
             s_out, (conv_st, ssd_st) = res
             cache_el.update(k=kv[0], v=kv[1], conv=conv_st, ssd=ssd_st)
@@ -85,7 +101,7 @@ def encoder_block(x, lp, cfg: ArchConfig, positions):
     a_out, _ = attention(_norm(x, lp["ln1"], cfg), lp["attn"], cfg,
                          positions, causal=False)
     x = x + _out(a_out)
-    return x + _out(mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type))
+    return x + _out(_mlp(_norm(x, lp["ln2"], cfg), lp, cfg))
 
 
 def cross_block(x, lp, cfg: ArchConfig, positions, enc_out):
@@ -97,7 +113,7 @@ def cross_block(x, lp, cfg: ArchConfig, positions, enc_out):
     x = x + _out(a_out)
     x = x + _out(cross_attention(_norm(x, lp["ln3"], cfg), lp["xattn"], cfg,
                                  enc_out))
-    x = x + _out(mlp(_norm(x, lp["ln2"], cfg), lp["mlp"], cfg.mlp_type))
+    x = x + _out(_mlp(_norm(x, lp["ln2"], cfg), lp, cfg))
     return x, kv
 
 

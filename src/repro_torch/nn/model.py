@@ -50,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.parallel import context as pctx
 
@@ -385,10 +386,11 @@ def _embed(params: Model, tokens):
 
 def _unembed(params: Model, cfg: ArchConfig, x):
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
-    if pctx.is_dtensor(x) and not _vocab_split(params, cfg):
-        # the vocab whole on each rank: each rank its own positions
-        return pctx.local_product(x, w)
-    return x @ w
+    with obs.span("repro_torch.unembed"):
+        if pctx.is_dtensor(x) and not _vocab_split(params, cfg):
+            # the vocab whole on each rank: each rank its own positions
+            return pctx.local_product(x, w)
+        return x @ w
 
 
 def _project(params: Model, t: torch.Tensor) -> torch.Tensor:
@@ -442,7 +444,8 @@ def _decoder_layer(x, lp, cfg: ArchConfig, positions, enc_out,
     if cfg.cross_attention:
         x, (k, v) = cross_block(x, lp, cfg, positions, enc_out)
         return x, None, ({"k": k, "v": v} if collect else {})
-    return block_forward(x, lp, cfg, positions, collect_cache=collect)
+    with obs.span("repro_torch.layer"):
+        return block_forward(x, lp, cfg, positions, collect_cache=collect)
 
 
 def _remat_layer(x, lp, cfg: ArchConfig, positions, enc_out):
@@ -462,8 +465,9 @@ def _run_layers(params: Model, cfg: ArchConfig, x, positions, enc_out,
     dense_els, els = [], []
     x = _constrain_residual(x)
     for lp in params.dense_layers:
-        x, a, el = block_forward(x, lp, dense_cfg, positions,
-                                 collect_cache=collect)
+        with obs.span("repro_torch.layer"):
+            x, a, el = block_forward(x, lp, dense_cfg, positions,
+                                     collect_cache=collect)
         x = _constrain_residual(x)
         aux = aux + a
         dense_els.append(el)
@@ -777,10 +781,11 @@ def prefill(params: Model, cfg: ArchConfig, tokens=None, embeds=None,
     x = pctx.gather_model(
         norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps))
     logits = _unembed(params, cfg, x[:, -1:])[:, 0]
-    cache = {"layers": _cache_of(els, cfg, B, S, max_seq)}
+    with obs.span("repro_torch.cache"):
+        cache = {"layers": _cache_of(els, cfg, B, S, max_seq)}
+        if cfg.first_dense_layers:
+            cache["dense_layers"] = _cache_of(dense_els, cfg, B, S, max_seq)
     if cfg.cross_attention:
         cache["layers"]["enc_out"] = enc_out.expand(
             (len(els),) + enc_out.shape).contiguous()
-    if cfg.first_dense_layers:
-        cache["dense_layers"] = _cache_of(dense_els, cfg, B, S, max_seq)
     return logits, cache

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.parallel import context as pctx
 
 from .config import ArchConfig
@@ -126,7 +127,8 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ArchConfig):
                              dp_spec)
         y = pctx.reshape_rows(y, (b, s, d))
     if cfg.n_shared_experts and pctx.is_dtensor(x):
-        y = y + _shared(x, p)
+        with obs.span("repro_torch.moe.shared"):
+            y = y + _shared(x, p)
     return y, aux
 
 
@@ -226,8 +228,10 @@ def combine(out_buf: torch.Tensor, plan: Dispatch, T: int) -> torch.Tensor:
 def _route_and_dispatch(xf, router, cfg: ArchConfig, C: int):
     """:func:`route` then :func:`dispatch`: (buffer, the plan's fields,
     the probability sum, the hits)."""
-    gates, idx, prob_sum, hits = route(xf, router, cfg)
-    buf, plan = dispatch(xf, idx, gates, C, cfg.n_experts)
+    with obs.span("repro_torch.moe.route"):
+        gates, idx, prob_sum, hits = route(xf, router, cfg)
+    with obs.span("repro_torch.moe.dispatch"):
+        buf, plan = dispatch(xf, idx, gates, C, cfg.n_experts)
     return (buf, *plan, prob_sum, hits)
 
 
@@ -239,17 +243,29 @@ def _moe_groups(xf: torch.Tensor, p: dict, cfg: ArchConfig, dp_spec):
     the reference's ``_moe_groups`` op for op.  DTensor groups route and
     combine rank by rank (``local_map``), the buffer's experts split over
     the model axis for the expert products and gathered back for the
-    combine; their shared experts run in :func:`moe_ffn`."""
+    combine; their shared experts run in :func:`moe_ffn`.
+
+    While recording (:mod:`repro_torch.obs`) plain groups count the
+    assignments routed (``moe.assignments``, D T K), the buffer's rows
+    (``moe.slots``, D E C) and the assignments that found a slot
+    (``moe.kept``, on the device); DTensor groups count nothing."""
     D, T, d = xf.shape
     C = capacity(T, cfg)
     if pctx.is_dtensor(xf):
         return _moe_groups_laid_out(xf, p, cfg, dp_spec, C)
     buf, *plan, prob_sum, hits = _route_and_dispatch(xf, p["router"], cfg, C)
+    if obs.on():
+        obs.count("moe.assignments", D * T * cfg.n_experts_active)
+        obs.count("moe.slots", D * cfg.n_experts * C)
+        obs.count("moe.kept", Dispatch(*plan).counts.clamp(max=C).sum())
     aux = aux_loss(prob_sum, hits, D * T, cfg)
-    out_buf = experts(_constrain_moe_buf(buf, dp_spec), p)
-    y = combine(out_buf, Dispatch(*plan), T)
+    with obs.span("repro_torch.moe.experts"):
+        out_buf = experts(_constrain_moe_buf(buf, dp_spec), p)
+    with obs.span("repro_torch.moe.combine"):
+        y = combine(out_buf, Dispatch(*plan), T)
     if cfg.n_shared_experts:
-        y = y + _shared(xf, p)
+        with obs.span("repro_torch.moe.shared"):
+            y = y + _shared(xf, p)
     return y, aux
 
 
@@ -279,12 +295,14 @@ def _moe_groups_laid_out(xf, p: dict, cfg: ArchConfig, dp_spec, C: int):
         device_mesh=mesh, redistribute_inputs=True)
     buf, *plan, prob_sum, hits = route_(xf, p["router"])
     aux = aux_loss(prob_sum, hits, D * T, cfg)
-    out_buf = experts(_constrain_moe_buf(buf, dp_spec), p)
+    with obs.span("repro_torch.moe.experts"):
+        out_buf = experts(_constrain_moe_buf(buf, dp_spec), p)
     combine_ = local_map(lambda b, *a: combine(b, Dispatch(*a), T),
                          out_placements=(x_pl,),
                          in_placements=(x_pl,) * (1 + n_plan),
                          device_mesh=mesh, redistribute_inputs=True)
-    return combine_(out_buf, *plan), aux
+    with obs.span("repro_torch.moe.combine"):
+        return combine_(out_buf, *plan), aux
 
 
 def experts(buf, p: dict):

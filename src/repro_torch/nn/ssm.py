@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.kernels import ops
 from repro_torch.parallel.context import (constrain, current, gather_model,
                                           head_local, is_dtensor, item_local,
@@ -91,25 +92,27 @@ def ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk: int,
     # every input as a [b*nc, h, q, x] view: B and C of a (batch, chunk)
     # expanded over its heads with stride 0, dtx and cumA transposed
     bc = b * nc
-    y_intra, S_c = ops.ssd_intra_chunk(
-        dtx.permute(0, 1, 3, 2, 4).reshape(bc, h, q, p),
-        Br.reshape(bc, 1, q, n).expand(bc, h, q, n),
-        Cr.reshape(bc, 1, q, n).expand(bc, h, q, n),
-        cumA.permute(0, 1, 3, 2).reshape(bc, h, q, 1))
+    with obs.span("repro_torch.ssd_intra", G=bc, h=h, q=q, n=n, p=p):
+        y_intra, S_c = ops.ssd_intra_chunk(
+            dtx.permute(0, 1, 3, 2, 4).reshape(bc, h, q, p),
+            Br.reshape(bc, 1, q, n).expand(bc, h, q, n),
+            Cr.reshape(bc, 1, q, n).expand(bc, h, q, n),
+            cumA.permute(0, 1, 3, 2).reshape(bc, h, q, 1))
     y_intra = y_intra.reshape(b, nc, h, q, p).permute(0, 1, 3, 2, 4)
     S_c = S_c.reshape(b, nc, h, n, p)
 
     # ---- inter-chunk recurrence --------------------------------------------
-    chunk_decay = torch.exp(cumA[:, :, -1, :])             # [b,nc,h]
-    s = torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
-    S_in = []
-    for c in range(nc):
-        S_in.append(s)
-        s = s * chunk_decay[:, c, :, None, None] + S_c[:, c]
-    S_in = torch.stack(S_in, dim=1)                        # [b,nc,h,n,p]
+    with obs.span("repro_torch.ssd_inter", b=b, nc=nc, h=h, n=n, p=p):
+        chunk_decay = torch.exp(cumA[:, :, -1, :])         # [b,nc,h]
+        s = torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
+        S_in = []
+        for c in range(nc):
+            S_in.append(s)
+            s = s * chunk_decay[:, c, :, None, None] + S_c[:, c]
+        S_in = torch.stack(S_in, dim=1)                    # [b,nc,h,n,p]
 
-    y_inter = torch.einsum("bcin,bchnp->bcihp", Cr, S_in) \
-        * torch.exp(cumA)[..., None]
+        y_inter = torch.einsum("bcin,bchnp->bcihp", Cr, S_in) \
+            * torch.exp(cumA)[..., None]
     y = y_intra + y_inter + D[..., None] * xr.float()
     y = y.reshape(b, l, h, p)
     if return_final_state:
