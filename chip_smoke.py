@@ -174,8 +174,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    decode steps; llama3.2-3b with the int8 KV cache on 4 x 2048 tokens and
    32 decode steps beside the bf16 cache's (half the k/v bytes, logits
    within the reference's 0.08);
-16. training: (a) K4's and K5's autograd Functions (the launch forward,
-   the torch-op backward) held on the card to ``torch.autograd`` of their
+16. training: (a) K4's and K5's autograd Functions (the launch forward;
+   K4's backward kernels for bf16, the torch-op backwards otherwise, each
+   bf16 K4 backward counted) held on the card to ``torch.autograd`` of their
    plain versions, on ragged shapes in float32 and bf16 and at hymba-1.5b's
    training shapes (K4 bf16 ``[2, 4096, 25, 64]`` with 5 kv heads), each
    gradient's worst error over its largest entry printed; (b) every smoke
@@ -194,7 +195,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    falling, step wall, training tokens/s, model-flop share, peak device
    memory, one step split into forward, backward and optimizer, every K4
    and K5 input of one step held to its plain version, K4's forward launch
-   beside its torch-op backward and SDPA's forward and backward, and the
+   beside its backward and SDPA's forward and backward, K4's backward
+   kernels' row (wrapper, launch alone, plain, SDPA's backward, bound) at
+   hymba's shape and at deepseek-moe-16b's D 128 with one query head a kv
+   head, 32 backward calls a step counted, and the
    device busy share of one profiled step; each model freed before the
    next;
 17. the dry run and the layout: (a) the reference's three §Perf cells
@@ -3890,15 +3894,16 @@ TRAIN = {"arch": "hymba-1.5b", "batch": 2, "seq": 4096, "steps": 8,
          "cut_batch": 2, "cut_seq": 256,
          "resume": {"arch": "tinyllama-1.1b", "batch": 4, "seq": 64,
                     "steps": 6, "crash": 3}}
-# K4's and K5's Functions (the launch forward, the torch-op backward)
-# against torch.autograd of their plain versions on the same card: each
-# gradient's largest error over its largest entry.  float32: the forwards
-# agree to K4_TOL / K5_TOL and the backwards run the same float32 ops in
-# another order.  bf16 (K4): both sides round each gradient to bf16 (2^-8
-# of an entry), and the backward's rowsum(dO * O) reads K4's bf16 output,
-# whose P was rounded to bf16 (the forward's bound, BF16_P_TOL): 2^-6 of the
-# largest gradient entry (tests/test_torch_train.py holds the same bound on
-# the CPU).
+# K4's and K5's Functions (the launch forward; K4's backward kernels for
+# bf16, the torch-op backwards otherwise) against torch.autograd of their
+# plain versions on the same card: each gradient's largest error over its
+# largest entry.  float32: the forwards agree to K4_TOL / K5_TOL and the
+# backwards run the same float32 ops in another order.  bf16 (K4): the
+# kernels round P and dS to bf16 before their products, both sides round
+# each gradient to bf16 (2^-8 of an entry), and the backward's
+# rowsum(dO * O) reads K4's bf16 output, whose P was rounded to bf16 (the
+# forward's bound, BF16_P_TOL): 2^-6 of the largest gradient entry
+# (tests/test_torch_attn_bwd.py holds the same bound on the card).
 GRAD_F32_REL = 1e-4
 GRAD_BF16_REL = 2.0 ** -6
 # the training path on cuda against cpu, float32: the loss within rtol 1e-5
@@ -3907,8 +3912,10 @@ GRAD_BF16_REL = 2.0 ** -6
 LOSS_RTOL = 1e-5
 LEAF_RTOL, LEAF_ATOL = 1e-4, 1e-6
 # K4 at hymba-1.5b's training shape (B, S, H, KH, D) and K5 at it (batch x
-# chunks, heads, q, n, p)
+# chunks, heads, q, n, p); K4 at deepseek-moe-16b's heads (16 of 128, one
+# a kv head) over the same rows
 TRAIN_K4 = (2, 4096, 25, 5, 64)
+TRAIN_K4_D128 = (2, 4096, 16, 16, 128)
 TRAIN_K5 = (64, 50, 128, 16, 64)
 
 
@@ -4021,14 +4028,19 @@ def backward_parity() -> None:
     k5_grad_errs(ssd, ops, *k5_inputs(gen, *TRAIN_K5), worst_full5)
     n5 += 1
     torch.cuda.synchronize()
-    # each Function launched its kernel once a case, the checks once more
-    launches = (fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_intra_chunk"])
-    if launches != (2 * n4, 2 * n5):
-        raise AssertionError(f"backward parity launched K4/K5 {launches} "
-                             f"times, expected {(2 * n4, 2 * n5)}")
+    # each Function launched its kernel once a case, the checks once more;
+    # every bf16 case's backward ran on K4's backward kernels (16 ragged
+    # cases and the training shape), no float32 one did
+    launches = (fa.LAUNCHES["flash_attention"], ssd.LAUNCHES["ssd_intra_chunk"],
+                fa.LAUNCHES["flash_attention_bwd"])
+    if launches != (2 * n4, 2 * n5, n4 // 2 + 1):
+        raise AssertionError(f"backward parity launched K4/K5/K4's backward "
+                             f"{launches} times, expected "
+                             f"{(2 * n4, 2 * n5, n4 // 2 + 1)}")
     torch.cuda.empty_cache()
     log(f"training (a) backward parity on the card: K4 {n4} cases (D 64/128, "
-        f"rep 1/5, causal and full, S 63/200, float32 and bf16; hymba's "
+        f"rep 1/5, causal and full, S 63/200, float32 on the torch-op "
+        f"backward and bf16 on the backward kernels, {launches[2]} calls; hymba's "
         f"training shape (B, S, H, KH, D) {TRAIN_K4} bf16 causal), worst gradient error"
         f" over its largest entry " + ", ".join(
             f"{t} {g} {e:.3g}" for (t, g), e in sorted(full4.items()))
@@ -4242,9 +4254,9 @@ def train_split_ms(model, cfg, opt_state, batch, ocfg) -> dict:
 
 
 def k4_train_figures(fa, q, k, v) -> dict:
-    """At one training call's shape: K4's forward launch, its torch-op
-    backward, and SDPA's forward and forward + backward (with
-    ``enable_gqa``), CUDA-event ms."""
+    """At one training call's shape: K4's forward launch, its backward
+    (the kernels, for bf16), and SDPA's forward and forward + backward
+    (with ``enable_gqa``), CUDA-event ms."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=q.device).manual_seed(0)
@@ -4267,6 +4279,55 @@ def k4_train_figures(fa, q, k, v) -> dict:
             qt, kt, vt, is_causal=True, enable_gqa=True), 5)
     return {"k4_fwd_ms": fwd, "k4_bwd_ms": bwd, "sdpa_fwd_ms": sdpa,
             "sdpa_fwd_bwd_ms": cuda_ms(sdpa_fwd_bwd, 3)}
+
+
+def k4_bwd_figures(fa, q, k, v, causal=True) -> dict:
+    """One K4 backward at ``q``, ``k``, ``v``'s shape, CUDA-event ms: the
+    wrapper (``flash_attention_backward``: the kernels for bf16), the
+    launch alone (the C entry, its two kernels, on buffers allocated
+    once), the plain version, and SDPA's backward with ``enable_gqa``
+    (``autograd.grad`` on one retained graph), the library yardstick;
+    beside the bound of ``bench/counts``' ``attention_bwd``: four
+    products, twice the forward's flops, at 989 TFLOP/s against q, k, v,
+    o and dO read and dq, dk, dv written once at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    gen = torch.Generator(device=q.device).manual_seed(1)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    out = fa._flash_attention_cuda(q, k, v, causal)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 2 * B * H * pairs * 4 * D
+    moved = (4 * q.numel() + 4 * k.numel()) * q.element_size()
+    t_ops, t_bytes = flops / BF16_FLOPS, moved / HBM_BYTES_PER_S
+    Sp = -(-S // 64) * 64
+    bufs = [torch.empty_like(t) for t in (q, k, v)] + [
+        torch.empty(B, H, Sp, device=q.device),
+        torch.empty(B, H, Sp, device=q.device)]
+    fn = fa.kernel("flash_attention_bwd", "flash_attention_bwd",
+                   fa._BWD_ARGTYPES)
+    args = [t.data_ptr() for t in (q, k, v, out, dout, *bufs)] + [
+        B, S, H, KH, D, int(causal), 1.0 / D ** 0.5]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                       enable_gqa=True)
+    dt = dout.transpose(1, 2)
+    with torch.no_grad():
+        figs = dict(
+            ms=cuda_ms(lambda: fa.flash_attention_backward(
+                q, k, v, out, dout, causal), 5),
+            kernel_ms=cuda_ms(lambda: fa.launch(fn, q.device, *args), 5),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_backward_plain(
+                q, k, v, out, dout, causal), 2))
+    figs.update(
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dt, retain_graph=True), 5),
+        bound_ms=max(t_ops, t_bytes) * 1e3,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        shape=[B, S, H, KH, D])
+    return figs
 
 
 def k5_train_figures(ssd, dtx, Bm, Cm, cumA) -> dict:
@@ -4293,8 +4354,10 @@ def hymba_training() -> dict:
     and K5's counts set to 0 just before (each launched forward and in the
     recompute, 2 x 32 a step); one step split into forward, backward and
     optimizer; one step with every K4 and K5 input captured and held to
-    the plain versions; K4 and K5 forward beside their torch-op backwards
-    and SDPA; one profiled step.  Returns the ``train`` figures of K4's and
+    the plain versions; K4 and K5 forward beside their backwards and SDPA;
+    K4's backward kernels beside their plain version, SDPA's backward and
+    their bound at hymba's shape and at ``TRAIN_K4_D128``; one profiled
+    step.  Returns the ``train`` figures of K4's and
     K5's rows."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
@@ -4328,10 +4391,11 @@ def hymba_training() -> dict:
     want = steps * 2 * cfg.n_layers
     if launches["flash_attention"] != want or launches[
             "ssd_intra_chunk"] != want or launches["flash_attention_tc"] \
-            != want:
+            != want or launches["flash_attention_bwd"] != want // 2:
         raise AssertionError(f"hymba training launched {launches} in "
                              f"{steps} steps, expected {want} of K4 (all "
-                             f"on the tensor cores) and of K5")
+                             f"on the tensor cores) and of K5, and "
+                             f"{want // 2} of K4's backward")
     losses = [float(m["loss"]) for m in mets]
     norms = [float(m["grad_norm"]) for m in mets]
     if not all(np.isfinite(losses + norms)) or not losses[-1] < losses[0]:
@@ -4353,7 +4417,7 @@ def hymba_training() -> dict:
         f"{attn_flops:.4g}), {100 * mfu:.2f} % of 989 TFLOP/s bf16; "
         f"max_memory_allocated {peak} bytes; K4/K5 launches {launches} "
         f"({want} each = {steps} steps x 2 x {cfg.n_layers}: forward and "
-        f"recompute); losses {[round(x, 4) for x in losses]}, grad norms "
+        f"recompute; K4's backward {want // 2}, one a layer); losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 4) for x in norms]}")
     split = train_split_ms(model, cfg, opt_state, batch, ocfg)
     log(f"training (d) one step split by CUDA events: " + ", ".join(
@@ -4398,11 +4462,23 @@ def hymba_training() -> dict:
     a5, _ = captured["ssd_intra_chunk"][0]
     f4 = k4_train_figures(fa, *a4)
     f5 = k5_train_figures(ssd, *a5)
+    b4 = [k4_bwd_figures(fa, *a4)]
     del captured
-    out["flash_attention"].update(f4)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    B4, S4, H4, KH4, D4 = TRAIN_K4_D128
+    b4.append(k4_bwd_figures(fa, *(
+        torch.randn(B4, S4, h, D4, generator=gen, device="cuda").bfloat16()
+        for h in (H4, KH4, KH4))))
+    out["flash_attention"].update(f4, backward=b4)
     out["ssd_intra_chunk"].update(f5)
+    for b in b4:
+        log(f"training (d) K4's backward kernels at (B, S, H, KH, D) "
+            f"{b['shape']} bf16 causal: wrapper {b['ms']:.3f} ms, launch "
+            f"alone {b['kernel_ms']:.3f} ms, plain {b['plain_ms']:.3f} ms, "
+            f"SDPA backward {b['library_ms']:.3f} ms, bound "
+            f"{b['bound_ms']:.3f} ms ({b['bound_by']})")
     log(f"training (d) K4 at {list(a4[0].shape)} / {list(a4[1].shape)} bf16 "
-        f"causal: forward launch {f4['k4_fwd_ms']:.3f} ms, torch-op backward"
+        f"causal: forward launch {f4['k4_fwd_ms']:.3f} ms, backward kernels"
         f" {f4['k4_bwd_ms']:.3f} ms; SDPA forward {f4['sdpa_fwd_ms']:.3f} ms,"
         f" forward + backward {f4['sdpa_fwd_bwd_ms']:.3f} ms; K5 at "
         f"{list(a5[0].shape)}: forward launch {f5['k5_fwd_ms']:.3f} ms, "

@@ -1,4 +1,4 @@
-"""K4, flash attention forward, and its plain version.
+"""K4, flash attention forward and backward, and their plain versions.
 
 :func:`flash_attention`
     Causal or full grouped-query attention, ``q`` ``[B, S, H, D]`` against
@@ -18,11 +18,15 @@
 :class:`FlashAttention` and :func:`flash_attention_autograd`
     K4 under autograd: the forward is :func:`flash_attention` (K4's launch
     on CUDA tensors, the plain version on CPU tensors), the backward is
-    :func:`flash_attention_backward`, torch ops that recompute the softmax
-    from the saved ``q``, ``k`` and ``v`` in float32, one block of queries
-    at a time.  There is no backward kernel because the TPU kernel has
-    none: the reference trains through plain jnp attention, and its Pallas
-    kernel is its production forward only.
+    :func:`flash_attention_backward`.  The TPU kernel has no backward (the
+    reference trains through plain jnp attention; its Pallas kernel is its
+    production forward only), so the port added one: for bfloat16 on CUDA
+    it is K4's backward kernels (``csrc/flash_attention_bwd.cu``: the row
+    statistics and dq a tile of queries, then dk and dv a tile of keys, on
+    ``wgmma``), counted in :data:`LAUNCHES`; for float32 on CUDA and for CPU and ``meta`` tensors
+    it is :func:`flash_attention_backward_plain`, torch ops that recompute
+    the softmax from the saved ``q``, ``k`` and ``v`` in float32, one
+    block of queries at a time.
 
 Counterpart of ``repro.kernels.flash_attention``, whose Pallas kernel also
 needs ``S`` to be a multiple of its 128-row blocks; that is a limit of its
@@ -41,15 +45,18 @@ from repro_torch import obs
 
 from .build import count, kernel, launch
 
-#: Kernel launches since the counts were last reset: every launch, and
-#: those of the tensor-core (bfloat16) kernel alone.
-LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
+#: Kernel launches since the counts were last reset: every forward launch,
+#: those of the tensor-core (bfloat16) forward alone, and the backward's
+#: calls (one a backward: its two kernels on the stream).
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
+            "flash_attention_bwd": 0}
 #: Head dims K4 is compiled for.
 HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30
 
 _I = ctypes.c_int
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (_I,) * 7 + (ctypes.c_float,)
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 10 + (_I,) * 6 + (ctypes.c_float,)
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -188,7 +195,32 @@ def backward_rows(B: int, H: int, S: int) -> int:
 
 def flash_attention_backward(q, k, v, out, dout, causal: bool = True):
     """Gradients ``(dq, dk, dv)`` of :func:`flash_attention` at ``(q, k,
-    v)``, given its output ``out`` and the output's gradient ``dout``.
+    v)``, given its output ``out`` and the output's gradient ``dout``; each
+    gradient has its input's dtype.
+
+    The path follows the inputs, with no fallback: bfloat16 on CUDA is one
+    call of K4's backward kernels (:func:`_flash_attention_backward_cuda`,
+    counted in ``LAUNCHES["flash_attention_bwd"]``), which round P and dS
+    to bfloat16 before their products as the reference's bf16 autodiff
+    does; float32 on CUDA, and any CPU or ``meta`` input, is
+    :func:`flash_attention_backward_plain`.
+    """
+    return _backward_entry(q)(q, k, v, out, dout, causal)
+
+
+def _backward_entry(q):
+    """Which backward takes ``q``'s device and dtype: K4's backward kernels
+    for bfloat16 on CUDA, else the plain version (float32 on CUDA, and
+    CPU and ``meta`` tensors, the dry run's shapes)."""
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        return _flash_attention_backward_cuda
+    return flash_attention_backward_plain
+
+
+def flash_attention_backward_plain(q, k, v, out, dout, causal: bool = True):
+    """Plain version of K4's backward, and the float32 route of
+    :func:`flash_attention_backward` (a float32 CUDA input takes it: there
+    is no float32 backward kernel).
 
     Torch ops in float32, one block of :func:`backward_rows` queries at a
     time, so no ``[B, H, S, S]`` tensor is live whole: the scores and
@@ -228,6 +260,100 @@ def flash_attention_backward(q, k, v, out, dout, causal: bool = True):
             B, s1 - s0, H, D) * scale
         dk[:, :ke] += torch.einsum("bhrqk,bqhrd->bkhd", ds, qb) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def backward_row_stats_plain(q, k, out, dout, causal: bool = True):
+    """Plain version of the row statistics K4's backward recomputes:
+    ``lse`` ``[B, H, S]``, each query row's log-sum-exp of its scaled,
+    masked scores (its running max and sum over blocks of
+    :func:`backward_rows` keys, as the kernel takes them over kv tiles),
+    and ``delta`` ``[B, H, S]``, ``rowsum(dO * O)``; both float32."""
+    B, S, H, D = q.shape
+    KH = k.shape[2]
+    qg = q.float().reshape(B, S, KH, H // KH, D)
+    m = torch.full((B, KH, H // KH, S), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    pos = torch.arange(S, device=q.device)
+    cols = backward_rows(B, H, S)
+    for k0 in range(0, S, cols):
+        k1 = min(S, k0 + cols)
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qg, k[:, k0:k1].float()) / (
+            D ** 0.5)
+        if causal:
+            s = s.masked_fill(pos[:, None] < pos[None, k0:k1], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.exp(
+            s - m_new[..., None]).sum(-1)
+        m = m_new
+    lse = (m + torch.log(l)).reshape(B, H, S)
+    delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)
+    return lse, delta
+
+
+def _flash_attention_backward_cuda(q, k, v, out, dout, causal: bool):
+    """K4's backward kernels on CUDA bfloat16 inputs: ``(dq, dk, dv)``."""
+    return _backward_launch(q, k, v, out, dout, causal)[:3]
+
+
+def _backward_launch(q, k, v, out, dout, causal: bool):
+    """One call of ``csrc/flash_attention_bwd.cu`` (its two kernels on the
+    current stream): ``(dq, dk, dv, lse, delta)``, the last two the row
+    statistics it recomputed, float32 ``[B, H, S]``.  Checks the inputs'
+    metadata and raises on what the kernels do not take; ``dout`` is made
+    contiguous (autograd may hand an expanded gradient)."""
+    _check(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"K4's backward kernels take bfloat16, got {q.dtype}")
+    dout = dout.contiguous()
+    for t, what in ((out, "out"), (dout, "dout")):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{what} must match q ({tuple(q.shape)}, "
+                             f"{q.dtype}, {q.device}), got "
+                             f"{tuple(t.shape)}, {t.dtype}, {t.device}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    B, S, H, D = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    Sp = -(-S // 64) * 64
+    lse = torch.empty(B, H, Sp, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    if not q.numel():
+        return dq, dk, dv, lse[..., :S], delta[..., :S]
+    torch.ops.repro_torch.flash_attention_bwd(
+        *(t.detach() for t in (q, k, v, out, dout)), dq, dk, dv, lse, delta,
+        bool(causal))
+    count(LAUNCHES, "flash_attention_bwd")
+    return dq, dk, dv, lse[..., :S], delta[..., :S]
+
+
+def _flash_attention_bwd_op(q, k, v, out, dout, dq, dk, dv, lse, delta,
+                            causal: bool) -> None:
+    """CUDA kernel of the operator ``repro_torch::flash_attention_bwd``:
+    one call of ``csrc/flash_attention_bwd.cu``'s C entry on the current
+    stream, writing ``dq``, ``dk``, ``dv``, ``lse`` and ``delta`` (shapes
+    as :func:`_backward_launch` makes them)."""
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, out, dout, dq, dk, dv, lse,
+                                        delta))
+    if any(p % 16 for p in ptrs):
+        raise ValueError("K4's backward copies 16 bytes at a time: q, k, v, "
+                         "out and dout must be 16-byte aligned")
+    B, S, H, D = q.shape
+    launch(kernel("flash_attention_bwd", "flash_attention_bwd",
+                  _BWD_ARGTYPES),
+           q.device, *ptrs, B, S, H, k.shape[2], D, int(causal),
+           1.0 / D ** 0.5)
+
+
+# K4's backward is an operator with a CUDA kernel only, so that it is an op
+# inside its caller's spans: the profiler books a kernel to the innermost
+# op open when it was launched, never to a ``record_function`` span, and the
+# innermost op around a backward is autograd's node, outside every span the
+# backward opens (the forward's launch books to ``FlashAttention``'s op).
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+            "Tensor dout, Tensor(a!) dq, Tensor(b!) dk, Tensor(c!) dv, "
+            "Tensor(d!) lse, Tensor(e!) delta, bool causal) -> ()")
+_LIB.impl("flash_attention_bwd", _flash_attention_bwd_op, "CUDA")
 
 
 class FlashAttention(torch.autograd.Function):

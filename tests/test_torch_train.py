@@ -387,11 +387,12 @@ def test_flash_attention_backward_blocks_the_queries(monkeypatch):
     q, k, v, dout = (torch.from_numpy(rng.standard_normal(
         (1, 50, h, 16)).astype(np.float32)) for h in (4, 2, 2, 4))
     out = fa.flash_attention_plain(q, k, v)
-    whole = fa.flash_attention_backward(q, k, v, out, dout)
+    whole = fa.flash_attention_backward_plain(q, k, v, out, dout)
     # 4 heads x 50 keys x 3 queries: blocks of 3 rows, the last ragged
     monkeypatch.setattr(fa, "BACKWARD_BLOCK_ELEMS", 4 * 50 * 3)
     assert fa.backward_rows(1, 4, 50) == 3
-    for g, w in zip(fa.flash_attention_backward(q, k, v, out, dout), whole):
+    for g, w in zip(fa.flash_attention_backward_plain(q, k, v, out, dout),
+                    whole):
         assert rel_max(g, w) <= KERNEL_RTOL
 
 
