@@ -4082,10 +4082,10 @@ def expected_launches(cfg) -> tuple:
     ``remat``: each checkpointed decoder layer launches in the forward and
     again in its recompute, a leading dense layer and an encoder layer
     once."""
-    scanned = cfg.n_layers - cfg.first_dense_layers
-    k4 = (2 * scanned + cfg.first_dense_layers + cfg.encoder_layers
-          if cfg.block_kind != "ssm" else 0)
-    k5 = 2 * scanned if cfg.block_kind in ("ssm", "hybrid") else 0
+    kinds = cfg.layer_kinds
+    k4 = (2 * sum(k != "ssm" for k in kinds) + cfg.first_dense_layers
+          + cfg.encoder_layers)
+    k5 = 2 * sum(k in ("ssm", "hybrid") for k in kinds)
     return k4, k5
 
 
@@ -4096,7 +4096,7 @@ def cut_models() -> None:
     ``expected_launches`` says on cuda), then one ``make_train_step`` with
     ``microbatches=2`` held to one with ``microbatches=1`` on cuda (not for
     MoE, whose capacity is per slice in the reference too)."""
-    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.configs import ALL_IDS, get_config, get_smoke_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
     from repro_torch.launch.steps import make_train_step
@@ -4105,7 +4105,7 @@ def cut_models() -> None:
 
     ocfg = AdamWConfig(warmup_steps=1, total_steps=10)
     for arch, label, cfg in (
-            *((a, "smoke config", get_smoke_config(a)) for a in ARCH_IDS),
+            *((a, "smoke config", get_smoke_config(a)) for a in ALL_IDS),
             (TRAIN["arch"], "full width cut to 2 layers", dataclasses.replace(
                 get_config(TRAIN["arch"]), n_layers=2))):
         tree = params_to_numpy(init_params(cfg, seed=0, device="cpu"))

@@ -1,8 +1,11 @@
-"""Architecture registry of the port: the 10 assigned configs.
+"""Architecture registry of the port: the 10 assigned configs and the
+port's own.
 
-Copies of ``repro.configs``.  Every id builds its ``ArchConfig``, and
-every one runs on the port's model (``repro_torch.nn``); the workload
-registry needs only the configs.
+``ARCH_IDS`` are copies of ``repro.configs``; ``PORT_ONLY_IDS`` the
+configs only the port runs (granite-4.0-h-small: a stack whose layers
+differ in their mixer).  Every id builds its ``ArchConfig``, and every one
+runs on the port's model (``repro_torch.nn``); the workload registry and
+the dry run take ``ARCH_IDS``.
 """
 from __future__ import annotations
 
@@ -10,26 +13,22 @@ import importlib
 
 from repro_torch.nn.config import ArchConfig
 
-_MODULES = {
-    "llama3.2-3b": "llama3_2_3b",
-    "tinyllama-1.1b": "tinyllama_1_1b",
-    "starcoder2-3b": "starcoder2_3b",
-    "qwen3-32b": "qwen3_32b",
-    "deepseek-moe-16b": "deepseek_moe_16b",
-    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-    "mamba2-130m": "mamba2_130m",
-    "hymba-1.5b": "hymba_1_5b",
-    "qwen2-vl-72b": "qwen2_vl_72b",
-    "whisper-small": "whisper_small",
-}
-
-ARCH_IDS = tuple(_MODULES)
+#: The ids the JAX package has too, in its order.
+ARCH_IDS = ("llama3.2-3b", "tinyllama-1.1b", "starcoder2-3b", "qwen3-32b",
+            "deepseek-moe-16b", "qwen3-moe-30b-a3b", "mamba2-130m",
+            "hymba-1.5b", "qwen2-vl-72b", "whisper-small")
+#: The ids only the port has.
+PORT_ONLY_IDS = ("granite-4.0-h-small",)
+#: Every id of the port.
+ALL_IDS = ARCH_IDS + PORT_ONLY_IDS
 
 
 def _mod(arch: str):
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
-    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    """The module of ``arch``: its id with ``.`` and ``-`` as ``_``."""
+    if arch not in ALL_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(ALL_IDS)}")
+    name = arch.replace(".", "_").replace("-", "_")
+    return importlib.import_module(f"repro_torch.configs.{name}")
 
 
 def get_config(arch: str) -> ArchConfig:
@@ -41,10 +40,11 @@ def get_smoke_config(arch: str) -> ArchConfig:
 
 
 def all_configs() -> dict[str, ArchConfig]:
-    return {a: get_config(a) for a in ARCH_IDS}
+    return {a: get_config(a) for a in ALL_IDS}
 
 
 from .shapes import SHAPES, ShapeSpec, cell_applicable, all_cells  # noqa: E402
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "all_configs",
-           "SHAPES", "ShapeSpec", "cell_applicable", "all_cells"]
+__all__ = ["ARCH_IDS", "PORT_ONLY_IDS", "ALL_IDS", "get_config",
+           "get_smoke_config", "all_configs", "SHAPES", "ShapeSpec",
+           "cell_applicable", "all_cells"]

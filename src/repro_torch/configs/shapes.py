@@ -39,7 +39,7 @@ def cell_applicable(cfg: ArchConfig, shape: ShapeSpec) -> tuple[bool, str]:
 
 
 def all_cells(configs: dict[str, ArchConfig]) -> list[tuple[str, str, bool, str]]:
-    """Every (arch, shape) pair with applicability flags — 40 cells."""
+    """Every (arch, shape) pair with applicability flags, four an arch."""
     out = []
     for arch, cfg in configs.items():
         for sname, sp in SHAPES.items():

@@ -26,6 +26,9 @@ NEG_INF = -1e30
 
 
 def _project_qkv(x, p, cfg: ArchConfig):
+    """q, k and v [B, S, heads, D]; under ``cfg.attention_multiplier`` q
+    is scaled by it times sqrt(D), so that K4's and decode's 1 / sqrt(D)
+    leaves the softmax scale the multiplier (one rounding of q more)."""
     B, S = x.shape[:2]
     hd = cfg.head_dim
     q = split_dim(x @ p["wq"], (B, S, cfg.n_heads, hd))
@@ -34,6 +37,8 @@ def _project_qkv(x, p, cfg: ArchConfig):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.attention_multiplier:
+        q = q * (cfg.attention_multiplier * hd ** 0.5)
     return q, k, v
 
 

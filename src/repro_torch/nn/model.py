@@ -92,15 +92,15 @@ def _mlp_shapes(cfg: ArchConfig) -> dict:
     return {"w1": (cfg.d_model, ff), "w2": (ff, cfg.d_model)}
 
 
-def _layer_shapes(cfg: ArchConfig) -> dict:
-    """Shapes of one layer's parameters (not stacked)."""
-    kind = cfg.block_kind
+def _layer_shapes(cfg: ArchConfig, kind: str) -> dict:
+    """Shapes of the parameters of one layer (not stacked) of block kind
+    ``kind``: its mixer's, then its MoE layer's or MLP's."""
     s: dict = {"ln1": _norm_shapes(cfg)}
     if kind in ("attn", "moe", "hybrid"):
         s["attn"] = _attn_shapes(cfg)
     if kind in ("ssm", "hybrid"):
         s["ssm"] = ssm_param_shapes(cfg)
-    if kind == "moe":
+    if cfg.is_moe:
         s["moe"] = moe_param_shapes(cfg)
         s["ln2"] = _norm_shapes(cfg)
     elif cfg.d_ff:
@@ -118,25 +118,42 @@ def _plain_layer_shapes(cfg: ArchConfig) -> dict:
             "ln2": _norm_shapes(cfg), "mlp": _mlp_shapes(cfg)}
 
 
+def _stack_layers(cfg: ArchConfig) -> dict[str, list[dict]]:
+    """Each stack's layers in order, each layer's parameter shapes by
+    group (not stacked)."""
+    stacks = {"layers": [_layer_shapes(cfg, kind)
+                         for kind in cfg.layer_kinds]}
+    if cfg.first_dense_layers:
+        stacks["dense_layers"] = [_plain_layer_shapes(cfg)] \
+            * cfg.first_dense_layers
+    if cfg.encoder_layers:
+        stacks["encoder"] = [_plain_layer_shapes(cfg)] * cfg.encoder_layers
+    return stacks
+
+
+def _holders(layers: list[dict]) -> dict[str, list[int]]:
+    """For each group of a stack's layers (in the order they first
+    appear), the layers that have it."""
+    out: dict = {}
+    for i, lp in enumerate(layers):
+        for g in lp:
+            out.setdefault(g, []).append(i)
+    return out
+
+
 def param_shapes(cfg: ArchConfig) -> dict:
     """Nested dict of parameter shapes (tuples); layers stacked on axis 0,
-    as in the reference."""
-    def stack(shapes: dict, n: int) -> dict:
-        return {g: {k: (n,) + sh for k, sh in d.items()}
-                for g, d in shapes.items()}
-
+    as in the reference: each group over the layers that have it (all of a
+    stack's but where ``layer_types`` mixes its mixers)."""
     shapes: dict = {"embed": (cfg.vocab_size, cfg.d_model),
                     "final_norm": _norm_shapes(cfg)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (cfg.d_model, cfg.vocab_size)
-    shapes["layers"] = stack(_layer_shapes(cfg),
-                             cfg.n_layers - cfg.first_dense_layers)
-    if cfg.first_dense_layers:
-        shapes["dense_layers"] = stack(_plain_layer_shapes(cfg),
-                                       cfg.first_dense_layers)
+    for name, layers in _stack_layers(cfg).items():
+        shapes[name] = {g: {k: (len(at),) + sh
+                            for k, sh in layers[at[0]][g].items()}
+                        for g, at in _holders(layers).items()}
     if cfg.encoder_layers:
-        shapes["encoder"] = stack(_plain_layer_shapes(cfg),
-                                  cfg.encoder_layers)
         shapes["enc_final_norm"] = _norm_shapes(cfg)
     if cfg.frontend:
         shapes["frontend_proj"] = (cfg.d_model, cfg.d_model)
@@ -209,14 +226,19 @@ class Model(nn.Module):
 
 def _model_from_leaves(cfg: ArchConfig, make) -> Model:
     """A :class:`Model` whose leaf at stacked path ``path`` (shape ``sh``)
-    is ``make(path, sh, i)``: layer ``i``'s tensor for a leaf of a stack,
-    one layer at a time, and the whole leaf for ``i`` None."""
+    is ``make(path, sh, i)``: the ``i``-th tensor of a stacked leaf (of
+    the ``i``-th layer that has its group), one layer at a time, and the
+    whole leaf for ``i`` None."""
+    stacks = _stack_layers(cfg)
+    holders = {name: _holders(layers) for name, layers in stacks.items()}
     tree: dict = {}
     for path, sh in _leaves(param_shapes(cfg)):
         if path[0] in STACKS:
-            layers = tree.setdefault(path[0], [{} for _ in range(sh[0])])
-            for i, lp in enumerate(layers):
-                lp.setdefault(path[1], {})[path[2]] = make(path, sh, i)
+            layers = tree.setdefault(path[0],
+                                     [{} for _ in stacks[path[0]]])
+            for i, at in enumerate(holders[path[0]][path[1]]):
+                layers[at].setdefault(path[1], {})[path[2]] = \
+                    make(path, sh, i)
         elif len(path) == 2:
             tree.setdefault(path[0], {})[path[1]] = make(path, sh, None)
         else:
@@ -377,11 +399,15 @@ def _put(t, dev: torch.device) -> torch.Tensor:
     return t.to(dev)
 
 
-def _embed(params: Model, tokens):
+def _embed(params: Model, cfg: ArchConfig, tokens):
     if pctx.is_dtensor(params.embed):
-        return pctx.reduce_output(
+        x = pctx.reduce_output(
             pctx.vocab_parallel_embedding(tokens, params.embed))
-    return params.embed[tokens]
+    else:
+        x = params.embed[tokens]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
 
 
 def _unembed(params: Model, cfg: ArchConfig, x):
@@ -389,8 +415,12 @@ def _unembed(params: Model, cfg: ArchConfig, x):
     with obs.span("repro_torch.unembed"):
         if pctx.is_dtensor(x) and not _vocab_split(params, cfg):
             # the vocab whole on each rank: each rank its own positions
-            return pctx.local_product(x, w)
-        return x @ w
+            logits = pctx.local_product(x, w)
+        else:
+            logits = x @ w
+        if cfg.logits_scaling != 1.0:
+            logits = logits / cfg.logits_scaling
+        return logits
 
 
 def _project(params: Model, t: torch.Tensor) -> torch.Tensor:
@@ -406,7 +436,7 @@ def _input(params: Model, cfg: ArchConfig, dev, tokens, embeds):
     if embeds is not None:
         x = _put(embeds, dev)
         return _project(params, x) if cfg.frontend else x
-    return _embed(params, _put(tokens, dev).long())
+    return _embed(params, cfg, _put(tokens, dev).long())
 
 
 def _positions(cfg: ArchConfig, B: int, S: int, device) -> torch.Tensor:
@@ -437,19 +467,25 @@ def _constrain_residual(x):
     return pctx.constrain(x, ctx.residual_sharding(x.shape[0], x.shape[1]))
 
 
+#: A block kind -> the mixer that the ``repro_torch.layer`` span names.
+_LAYER_TYPE = {"ssm": "mamba", "hybrid": "hybrid", "attn": "attention",
+               "moe": "attention"}
+
+
 def _decoder_layer(x, lp, cfg: ArchConfig, positions, enc_out,
-                   collect: bool):
-    """One decoder layer: (x, its aux loss or None for a cross-attention
-    layer, its cache elements when ``collect``)."""
+                   collect: bool, kind: str):
+    """One decoder layer of block kind ``kind``: (x, its aux loss or None
+    for a cross-attention layer, its cache elements when ``collect``)."""
     if cfg.cross_attention:
         x, (k, v) = cross_block(x, lp, cfg, positions, enc_out)
         return x, None, ({"k": k, "v": v} if collect else {})
-    with obs.span("repro_torch.layer"):
-        return block_forward(x, lp, cfg, positions, collect_cache=collect)
+    with obs.span("repro_torch.layer", type=_LAYER_TYPE[kind]):
+        return block_forward(x, lp, cfg, positions, collect_cache=collect,
+                             kind=kind)
 
 
-def _remat_layer(x, lp, cfg: ArchConfig, positions, enc_out):
-    return _decoder_layer(x, lp, cfg, positions, enc_out, False)[:2]
+def _remat_layer(x, lp, cfg: ArchConfig, positions, enc_out, kind: str):
+    return _decoder_layer(x, lp, cfg, positions, enc_out, False, kind)[:2]
 
 
 def _run_layers(params: Model, cfg: ArchConfig, x, positions, enc_out,
@@ -465,20 +501,20 @@ def _run_layers(params: Model, cfg: ArchConfig, x, positions, enc_out,
     dense_els, els = [], []
     x = _constrain_residual(x)
     for lp in params.dense_layers:
-        with obs.span("repro_torch.layer"):
+        with obs.span("repro_torch.layer", type="attention"):
             x, a, el = block_forward(x, lp, dense_cfg, positions,
                                      collect_cache=collect)
         x = _constrain_residual(x)
         aux = aux + a
         dense_els.append(el)
-    for lp in params.layers:
+    for lp, kind in zip(params.layers, cfg.layer_kinds):
         if remat and not collect:
             x, a = checkpoint(_remat_layer, x, lp, cfg, positions, enc_out,
-                              use_reentrant=False)
+                              kind, use_reentrant=False)
             el = {}
         else:
             x, a, el = _decoder_layer(x, lp, cfg, positions, enc_out,
-                                      collect)
+                                      collect, kind)
         x = _constrain_residual(x)
         if a is not None:
             aux = aux + a
@@ -606,9 +642,10 @@ def lm_loss(params: Model, cfg: ArchConfig, batch: dict, remat: bool = True,
 
 
 # ================================================================= decode ====
-def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
-    """Shapes of the per-layer decode cache (stacked [L, ...])."""
-    kind = cfg.block_kind
+def _layer_cache_shapes(cfg: ArchConfig, kind: str, batch: int,
+                        max_seq: int) -> dict:
+    """Shapes of one layer's decode cache entries, of block kind
+    ``kind``."""
     per: dict = {}
     if kind in ("attn", "moe", "hybrid"):
         per["k"] = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -620,8 +657,18 @@ def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
         per.update(ssm_decode_state_shapes(cfg, batch))
     if cfg.cross_attention:
         per["enc_out"] = (batch, cfg.encoder_seq, cfg.d_model)
-    n_scanned = cfg.n_layers - cfg.first_dense_layers
-    shapes = {"layers": {k: (n_scanned,) + v for k, v in per.items()}}
+    return per
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
+    """Shapes of the per-layer decode cache, each entry stacked [L, ...]
+    over the layers that have it (all but where ``layer_types`` mixes the
+    mixers: then k/v over the attention layers, conv/ssd over the Mamba2
+    layers, each in layer order)."""
+    per_layer = [_layer_cache_shapes(cfg, kind, batch, max_seq)
+                 for kind in cfg.layer_kinds]
+    shapes = {"layers": {k: (len(at),) + per_layer[at[0]][k]
+                         for k, at in _holders(per_layer).items()}}
     if cfg.first_dense_layers:
         kv = (cfg.first_dense_layers, batch, max_seq, cfg.n_kv_heads,
               cfg.head_dim)
@@ -656,14 +703,23 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> dict:
             for group, shapes in cache_shapes(cfg, batch, max_seq).items()}
 
 
-def _decode_stack(x, layers, cfg: ArchConfig, stacked: dict, pos: int):
-    """One token through a stack of layers and its cache group."""
-    for i, lp in enumerate(layers):
-        cl = {k: t[i] for k, t in stacked.items()}
-        x, ncl = block_decode(x, lp, cfg, cl, pos)
+def _decode_stack(x, layers, cfg: ArchConfig, stacked: dict, pos: int,
+                  kinds=None):
+    """One token through a stack of layers, of block kinds ``kinds``
+    (the config's block kind throughout when None), and its cache group:
+    each layer reads the next entry of each stacked leaf its kind has."""
+    kinds = kinds or (cfg.block_kind,) * len(layers)
+    at = dict.fromkeys(stacked, 0)
+    for lp, kind in zip(layers, kinds):
+        keys = [k for k in _layer_cache_shapes(cfg, kind, 0, 0)
+                if k in stacked]
+        cl = {k: stacked[k][at[k]] for k in keys}
+        x, ncl = block_decode(x, lp, cfg, cl, pos, kind=kind)
         for k in ("conv", "ssd"):
             if k in ncl:
-                stacked[k][i] = ncl[k]
+                stacked[k][at[k]] = ncl[k]
+        for k in keys:
+            at[k] += 1
     return x
 
 
@@ -677,12 +733,13 @@ def decode_step(params: Model, cfg: ArchConfig, cache: dict, token, pos: int,
     unchanged) and returned.  The leading dense layers run first.
     """
     dev = _bind(params, device)
-    x = _embed(params, _put(token, dev).long()[:, None])
+    x = _embed(params, cfg, _put(token, dev).long()[:, None])
     pos = int(pos)
     if cfg.first_dense_layers:
         x = _decode_stack(x, params.dense_layers, _dense_view(cfg),
                           cache["dense_layers"], pos)
-    x = _decode_stack(x, params.layers, cfg, cache["layers"], pos)
+    x = _decode_stack(x, params.layers, cfg, cache["layers"], pos,
+                      cfg.layer_kinds)
     x = pctx.gather_model(
         norm(x, params.final_norm, cfg.norm_type, cfg.norm_eps))
     return _unembed(params, cfg, x)[:, 0], cache
@@ -697,25 +754,31 @@ def _cache_of(els: list, cfg: ArchConfig, B: int, S: int,
     if els and pctx.is_dtensor(next(iter(els[0].values()))):
         return _cache_of_layout(els, cfg, S, max_seq)
     out: dict = {}
+    held = {name: len(layers) for name, layers in _holders(els).items()}
 
-    def put(name, i, t, seq: bool):
+    def put(name, t, seq: bool, of: str):
+        # the next entry of leaf ``name``, stacked over the layers that
+        # have element ``of``
         if name not in out:
-            shape = (len(els), B, max_seq) + t.shape[2:] if seq \
-                else (len(els),) + t.shape
+            shape = (held[of], B, max_seq) + t.shape[2:] if seq \
+                else (held[of],) + t.shape
             out[name] = torch.zeros(shape, dtype=t.dtype, device=t.device)
+            at[name] = 0
         if seq:
-            out[name][i, :, :S] = t
+            out[name][at[name], :, :S] = t
         else:
-            out[name][i] = t
+            out[name][at[name]] = t
+        at[name] += 1
 
-    for i, el in enumerate(els):
+    at: dict = {}
+    for el in els:
         for name, t in el.items():
             if name in ("k", "v") and cfg.kv_quant:
                 q, s = quantize_kv(t)
-                put(name, i, q, True)
-                put(f"{name}_scale", i, s, True)
+                put(name, q, True, name)
+                put(f"{name}_scale", s, True, name)
             else:
-                put(name, i, t, name in ("k", "v"))
+                put(name, t, name in ("k", "v"), name)
     return out
 
 
@@ -735,8 +798,8 @@ def _cache_of_layout(els: list, cfg: ArchConfig, S: int,
                              pctx.replicate_dims(t, [2]))
 
     out: dict = {}
-    for name in els[0]:
-        ts = [el[name] for el in els]
+    for name in _holders(els):
+        ts = [el[name] for el in els if name in el]
         if name in ("k", "v") and cfg.kv_quant:
             qs = [quantize_kv(t) for t in ts]
             out[name] = pad(torch.stack([q for q, _ in qs]))

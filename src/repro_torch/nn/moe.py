@@ -11,6 +11,14 @@ GShard/Switch.  Every step is plain torch, as it is plain jnp in the
 reference, which has no Pallas kernel here; the expert products are
 einsums over the buffer.
 
+An expert layer may hold a share of the router's experts (expert
+parallelism's local half: ``cfg.n_experts`` experts from
+``cfg.expert_first`` on, of ``cfg.n_router_experts``): it routes over all
+of them, its capacity buffer holds its own experts only, and assignments
+to experts held elsewhere go to no slot; the shared experts run whole.
+The exchange that would bring other ranks' tokens is
+:mod:`repro_torch.parallel.ep_a2a`'s.
+
 The tokens are routed in D groups at once, as the reference routes them:
 one group a data shard under a parallel context
 (:mod:`repro_torch.parallel.context`, ``_dp_groups``), else D = 1.  Each
@@ -41,7 +49,7 @@ MOE_CHUNK_TOKENS = 16384
 def moe_param_shapes(cfg: ArchConfig) -> dict:
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     shapes = {
-        "router": (d, e),
+        "router": (d, cfg.n_router_experts),
         "w1": (e, d, f),    # gate
         "w3": (e, d, f),    # up
         "w2": (e, f, d),    # down
@@ -54,10 +62,11 @@ def moe_param_shapes(cfg: ArchConfig) -> dict:
 
 
 def capacity(n_tokens: int, cfg: ArchConfig) -> int:
-    """Slots an expert has for ``n_tokens`` tokens: ``T K cf / E`` plus
-    one, rounded up to a multiple of 8, at least 8."""
+    """Slots an expert has for ``n_tokens`` tokens: ``T K cf / E`` (``E``
+    the router's experts) plus one, rounded up to a multiple of 8, at
+    least 8."""
     c = int(n_tokens * cfg.n_experts_active * cfg.capacity_factor
-            // cfg.n_experts) + 1
+            // cfg.n_router_experts) + 1
     return max(8, ((c + 7) // 8) * 8)
 
 
@@ -162,10 +171,11 @@ def top_k(logits: torch.Tensor, K: int):
 
 def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
     """Top-k routing of token groups ``xf`` [D, T, d] in float32
-    (:func:`top_k`): returns (gates [D, T, K] renormalised to sum 1,
-    expert ids [D, T, K], the router probabilities summed over every
-    token [E], the assignments of each expert over every group [E])."""
-    E, K = cfg.n_experts, cfg.n_experts_active
+    (:func:`top_k`) over the router's ``E`` experts: returns (gates [D,
+    T, K] renormalised to sum 1, expert ids [D, T, K], the router
+    probabilities summed over every token [E], the assignments of each
+    expert over every group [E])."""
+    E, K = cfg.n_router_experts, cfg.n_experts_active
     probs, gates, idx = top_k(xf.float() @ router.float(), K)
     experts_ = torch.arange(E, device=xf.device)
     hits = (idx.reshape(-1)[:, None] == experts_).sum(0).float()
@@ -175,29 +185,34 @@ def route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
 def aux_loss(prob_sum, hits, n_tokens: int, cfg: ArchConfig):
     """Switch's load-balance loss ``E * sum_e mean(probs_e) * count_e /
     (T K)`` over ``n_tokens`` tokens, from :func:`route`'s sums."""
-    E, K = cfg.n_experts, cfg.n_experts_active
+    E, K = cfg.n_router_experts, cfg.n_experts_active
     return E * torch.sum(prob_sum / n_tokens * (hits / (n_tokens * K)))
 
 
 def dispatch(xf: torch.Tensor, idx: torch.Tensor, gates: torch.Tensor,
-             C: int, E: int):
+             C: int, E: int, first: int = 0):
     """Gather token groups ``xf`` [D, T, d] into the ``[D, E, C, d]``
     capacity buffer by their expert ids ``idx`` [D, T, K]: slot (e, c) of
     a group holds the c-th assignment of expert e in the group's stably
     sorted list (a sort along the group's own dim), zeros past its count.
+    The buffer's experts are the router's ``first`` to ``first + E - 1``:
+    an assignment to any other expert (held elsewhere) takes no slot
+    (``keep`` false; it sorts after every held one).
     Returns (buffer, :class:`Dispatch`).  No device-to-host read."""
     D, T, K = idx.shape
     d = xf.shape[-1]
-    eflat = idx.reshape(D, T * K)
+    eflat = idx.reshape(D, T * K) - first
+    eflat = torch.where((eflat >= 0) & (eflat < E), eflat, E)
     order = torch.argsort(eflat, dim=-1, stable=True)
     e_sorted = torch.gather(eflat, 1, order)
     tok = order // K
     experts_ = torch.arange(E, device=xf.device)
     counts = (eflat[..., None] == experts_).sum(1)             # [D, E]
     offsets = counts.cumsum(-1) - counts
+    ends = F.pad(offsets, (0, 1), value=T * K)           # E: past the end
     rank = (torch.arange(T * K, device=xf.device)[None, :]
-            - torch.gather(offsets, 1, e_sorted))
-    keep = rank < C
+            - torch.gather(ends, 1, e_sorted))
+    keep = (rank < C) & (e_sorted < E)
     gidx = offsets[:, :, None] + torch.arange(C, device=xf.device)
     in_use = gidx < (offsets + counts.clamp(max=C))[:, :, None]
     gclip = gidx.clamp(0, T * K - 1).reshape(D, E * C)
@@ -226,12 +241,14 @@ def combine(out_buf: torch.Tensor, plan: Dispatch, T: int) -> torch.Tensor:
 
 
 def _route_and_dispatch(xf, router, cfg: ArchConfig, C: int):
-    """:func:`route` then :func:`dispatch`: (buffer, the plan's fields,
-    the probability sum, the hits)."""
+    """:func:`route` then :func:`dispatch` into the buffer of the experts
+    this layer holds: (buffer, the plan's fields, the probability sum, the
+    hits)."""
     with obs.span("repro_torch.moe.route"):
         gates, idx, prob_sum, hits = route(xf, router, cfg)
     with obs.span("repro_torch.moe.dispatch"):
-        buf, plan = dispatch(xf, idx, gates, C, cfg.n_experts)
+        buf, plan = dispatch(xf, idx, gates, C, cfg.n_experts,
+                             cfg.expert_first)
     return (buf, *plan, prob_sum, hits)
 
 
@@ -246,18 +263,22 @@ def _moe_groups(xf: torch.Tensor, p: dict, cfg: ArchConfig, dp_spec):
     combine; their shared experts run in :func:`moe_ffn`.
 
     While recording (:mod:`repro_torch.obs`) plain groups count the
-    assignments routed (``moe.assignments``, D T K), the buffer's rows
-    (``moe.slots``, D E C) and the assignments that found a slot
-    (``moe.kept``, on the device); DTensor groups count nothing."""
+    assignments routed (``moe.assignments``, D T K), those to experts held
+    here (``moe.local``, on the device),
+    the buffer's rows (``moe.slots``, D E C, E the experts held) and the
+    assignments that found a slot (``moe.kept``, on the device); DTensor
+    groups count nothing."""
     D, T, d = xf.shape
     C = capacity(T, cfg)
     if pctx.is_dtensor(xf):
         return _moe_groups_laid_out(xf, p, cfg, dp_spec, C)
     buf, *plan, prob_sum, hits = _route_and_dispatch(xf, p["router"], cfg, C)
     if obs.on():
+        counts = Dispatch(*plan).counts
         obs.count("moe.assignments", D * T * cfg.n_experts_active)
+        obs.count("moe.local", counts.sum())
         obs.count("moe.slots", D * cfg.n_experts * C)
-        obs.count("moe.kept", Dispatch(*plan).counts.clamp(max=C).sum())
+        obs.count("moe.kept", counts.clamp(max=C).sum())
     aux = aux_loss(prob_sum, hits, D * T, cfg)
     with obs.span("repro_torch.moe.experts"):
         out_buf = experts(_constrain_moe_buf(buf, dp_spec), p)

@@ -37,7 +37,8 @@ Spans of the port (each name prefixed ``repro_torch.``):
 ``prefill_step``   ``launch.steps.make_prefill_step``'s step (a step span;
                    attributes ``B``, ``L``)
 ``train_step``     ``launch.steps.make_train_step``'s step (a step span)
-``layer``          one decoder layer (``nn.blocks.block_forward``)
+``layer``          one decoder layer (``nn.blocks.block_forward``; ``type``
+                   its mixer: ``mamba``, ``attention`` or ``hybrid``)
 ``attention``      self-attention (``nn.attention.attention``)
 ``attn_core``      K4 (``kernels.ops.mha_flash``; ``B S H KH D causal``)
 ``ssm``            the Mamba2 mixer (``nn.ssm.ssm_mixer``)
@@ -60,10 +61,11 @@ Spans of the port (each name prefixed ``repro_torch.``):
 =================  ==========================================================
 
 Counters: ``moe.assignments`` (token-expert assignments routed, D T K a
-routing chunk), ``moe.slots`` (rows of the ``[D, E, C, d]`` capacity
-buffer, D E C) and ``moe.kept`` (assignments that found a slot, counted on
-the device); dropped assignments are ``moe.assignments - moe.kept``, and
-``moe.slots - moe.kept`` rows of the buffer are zeros.
+routing chunk), ``moe.local`` (those to experts this layer holds, counted
+on the device), ``moe.slots`` (rows of the ``[D, E, C, d]`` capacity
+buffer, D E C, E the experts held) and ``moe.kept`` (assignments that
+found a slot, counted on the device); dropped assignments are ``moe.local -
+moe.kept``, and ``moe.slots - moe.kept`` rows of the buffer are zeros.
 
 :func:`snapshot` reads everything recorded so far and clears nothing;
 :func:`reset` clears it.

@@ -158,7 +158,7 @@ print(" ".join(left))
                 "OptimizeResult", "optimize_partition"),
      ("DeviceHierarchy",)),
     ("configs", ("ARCH_IDS", "get_config", "all_configs", "SHAPES",
-                 "all_cells"), ()),
+                 "all_cells"), ("PORT_ONLY_IDS", "ALL_IDS")),
     ("workloads", ("sweep", "winner_table", "DEFAULT_SCENARIOS",
                    "moe_a2a_pattern", "tp_collective_patterns",
                    "pipeline_p2p_pattern"), ()),

@@ -42,6 +42,11 @@ from repro_torch.serve import Request, ServeEngine  # noqa: E402
 ARCHS = ["hymba-1.5b", "mamba2-130m", "llama3.2-3b", "tinyllama-1.1b",
          "starcoder2-3b", "qwen3-32b", "deepseek-moe-16b",
          "qwen3-moe-30b-a3b", "whisper-small", "qwen2-vl-72b"]
+#: The port's ArchConfig fields the reference's lacks, at their defaults.
+PORT_ONLY_FIELDS = {"layer_types": (), "embedding_multiplier": 1.0,
+                    "residual_multiplier": 1.0, "logits_scaling": 1.0,
+                    "attention_multiplier": 0.0, "router_experts": 0,
+                    "expert_first": 0}
 F32_TOL = 1e-4
 BF16_TOL = 0.1
 N_DECODE = 8
@@ -116,9 +121,14 @@ def snap(cache):
 @pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_copies_equal_repro(arch, smoke):
+    # field for field on the reference's fields; the fields only the port
+    # has (granite's stack and scalars, an expert share) at the defaults
+    # that change nothing
     get = "get_smoke_config" if smoke else "get_config"
     cfg, ref = getattr(configs, get)(arch), getattr(ref_configs, get)(arch)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    mine, theirs = dataclasses.asdict(cfg), dataclasses.asdict(ref)
+    assert {k: mine[k] for k in theirs} == theirs
+    assert {k: mine[k] for k in set(mine) - set(theirs)} == PORT_ONLY_FIELDS
     for prop in ("head_dim", "is_moe", "has_attention", "has_ssm",
                  "ssm_d_inner", "ssm_heads", "supports_long_context",
                  "block_kind"):
@@ -145,9 +155,12 @@ def test_registry_ids_and_shapes_equal_repro():
             assert configs.cell_applicable(configs.get_config(arch), shape) \
                 == ref_configs.cell_applicable(ref_configs.get_config(arch),
                                                ref_configs.SHAPES[name])
+    # the port's registry also holds its own ids, after the reference's
+    assert configs.ALL_IDS == configs.ARCH_IDS + configs.PORT_ONLY_IDS
+    assert configs.PORT_ONLY_IDS == ("granite-4.0-h-small",)
     cells = configs.all_cells(configs.all_configs())
-    assert len(cells) == 40
-    assert cells == ref_configs.all_cells(ref_configs.all_configs())
+    assert len(cells) == 4 * len(configs.ALL_IDS) == 44
+    assert cells[:40] == ref_configs.all_cells(ref_configs.all_configs())
 
 
 def test_unknown_arch_raises_key_error():

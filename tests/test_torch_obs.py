@@ -62,9 +62,9 @@ def test_off_a_span_enters_no_record_function_and_makes_no_event(
 
 
 def test_off_a_counter_runs_no_tensor_op():
-    """The MoE layer computes its kept count (a clamp and a sum a routing
-    chunk) only while recording: off, it runs every op it runs on but
-    those two."""
+    """The MoE layer computes its local and kept counts (a sum, and a
+    clamp and a sum, a routing chunk) only while recording: off, it runs
+    every op it runs on but those three."""
     from torch.overrides import TorchFunctionMode
 
     class Ops(TorchFunctionMode):
@@ -89,7 +89,7 @@ def test_off_a_counter_runs_no_tensor_op():
     # on, besides the spans' record_function ops and a shape read
     assert {k: v for k, v in extra.items()
             if "record_function" not in k and k != "__get__"} == \
-        {"clamp": 1, "sum": 1}
+        {"clamp": 1, "sum": 2}
 
 
 # -- when it records ----------------------------------------------------------

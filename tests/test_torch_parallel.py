@@ -126,6 +126,32 @@ def test_param_layouts_equal_the_reference(arch, mesh_id):
 
 
 @pytest.mark.parametrize("mesh_id", list(MESHES))
+@pytest.mark.parametrize("arch", configs.PORT_ONLY_IDS)
+def test_port_only_layouts_are_even_and_keep_the_layer_axis(arch, mesh_id):
+    # the reference has no such config: the port's layouts of its params
+    # (plain, FSDP, ZeRO-1) and of its decode caches split every leaf
+    # evenly and never a stack's layer axis
+    cfg = configs.get_config(arch)
+    _, plan = _plans(mesh_id)
+    shapes = dict(M._leaves(M.param_shapes(cfg)))
+    for fsdp in (False, True):
+        specs = _port_flat(sharding.param_pspecs(cfg, plan, fsdp=fsdp))
+        assert set(specs) == set(shapes)
+        for got in (specs, _port_flat(sharding.zero1_pspecs(
+                sharding.param_pspecs(cfg, plan, fsdp=fsdp), cfg, plan))):
+            _assert_even(got, shapes, mesh_id)
+            for path, spec in got.items():
+                if path[0] in M.STACKS:
+                    assert spec[0] is None, path
+    for name in ("decode_32k", "long_500k"):
+        shape = configs.SHAPES[name]
+        cache = M.abstract_cache(cfg, shape.global_batch, shape.seq_len)
+        got = _port_flat(sharding.cache_pspecs(plan, cache))
+        assert set(got) == set(_shapes_of(cache))
+        _assert_even(got, _shapes_of(cache), mesh_id)
+
+
+@pytest.mark.parametrize("mesh_id", list(MESHES))
 @pytest.mark.parametrize("arch", ARCHS)
 def test_batch_and_cache_layouts_equal_the_reference(arch, mesh_id):
     cfg, rcfg = configs.get_config(arch), ref_configs.get_config(arch)
@@ -491,7 +517,8 @@ def test_kernels_refuse_a_dtensor():
 
 @pytest.mark.parametrize("arch,change", [
     ("hymba-1.5b", {}), ("whisper-small", {}), ("deepseek-moe-16b", {}),
-    ("llama3.2-3b", {"kv_quant": True})])
+    ("llama3.2-3b", {"kv_quant": True}),
+    ("granite-4.0-h-small", {"router_experts": 16, "expert_first": 8})])
 def test_a_model_under_a_one_rank_layout_equals_the_plain_model(arch,
                                                                 change):
     # prefill and two decode steps on a 1 x 1 gloo mesh (K4 and K5 through
