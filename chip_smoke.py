@@ -18,7 +18,12 @@ Phases, in order (any failure raises and the script exits non-zero):
    llama3.2-3b's full attention shapes in bf16 (timed beside SDPA), with
    every bf16 case counted on its tensor-core kernel; K5 also on ragged q
    and at hymba-1.5b's and mamba2-130m's full prefill shapes, every case
-   counted on its tensor-core (split-TF32) path;
+   counted on its tensor-core (split-TF32) path; the Mamba2 mixer's
+   prologue and epilogue kernels (``kernels/ssm_mixer.py``) at the
+   benchmark's hymba-1.5b ``prefill-long`` and granite-4.0-h-small
+   ``prefill-long16k`` step shapes (16,384 tokens), each held to its plain
+   version in float32 and timed: wrapper, launch alone, the plain torch-op
+   chain on bf16 inputs, the byte bound;
 3. the small slice: ``best_strategy_many`` over the AMG hierarchy of
    ``elasticity_like_3d(16)`` on ``blue_waters_machine((4, 4, 2))``, on
    cuda and on cpu — identical winners, totals allclose; then one V-cycle
@@ -148,9 +153,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    L2, the same tokens;
 14. the model, full width: hymba-1.5b (32 layers, d_model 1600) in bf16 with
    random weights from ``init_params(seed=0)``, 4 seeded prompts of 2048
-   tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's
-   and K5's counts set to 0 just before (32 launches each, one a layer, all
-   on the tensor cores, and none during decode) and every K4
+   tokens through ``make_prefill_step`` (cache of 2080 positions) with K4's,
+   K5's and the mixer's prologue and epilogue counts set to 0 just before
+   (32 launches each, one a layer, K4's and K5's all on the tensor cores,
+   and none during decode) and every K4
    and K5 input captured, then 32 greedy
    ``make_serve_step`` decode steps; prefill and decode times, peak device
    memory and the device busy share of a profiled prefill; then
@@ -182,16 +188,18 @@ Phases, in order (any failure raises and the script exits non-zero):
    gradient's worst error over its largest entry printed; (b) every smoke
    config and hymba-1.5b at full width cut to 2 layers, float32, 2 x 256
    ``SyntheticTokens`` tokens: ``lm_loss`` and every gradient leaf on cuda
-   held to cpu, K4 and K5 launched in the forward and again in each
-   checkpointed layer's recompute, and a ``make_train_step`` with
+   held to cpu, K4, K5 and the mixer's two kernels launched in the
+   forward and again in each checkpointed layer's recompute (the mixer's
+   backward the plain pieces' torch ops), and a ``make_train_step`` with
    ``microbatches=2`` held to one with 1 (configs without experts); (c)
    tinyllama-1.1b's smoke config through ``Trainer`` under
    ``torch.use_deterministic_algorithms(True)``: 6 steps straight equal 3 +
    crash + 3 resumed from the checkpoint, bit for bit; (d) hymba-1.5b as
    published (1,640,144,000 parameters, bf16 weights, float32 AdamW
    moments, ``remat``) on one fixed batch of 2 x 4096 tokens: a warm-up
-   step, 8 timed steps with K4's and K5's counts set to 0 just before (2 x
-   32 launches each a step, forward and recompute), the loss finite and
+   step, 8 timed steps with K4's, K5's and the mixer's counts set to 0
+   just before (2 x 32 launches each a step, forward and recompute), the
+   loss finite and
    falling, step wall, training tokens/s, model-flop share, peak device
    memory, one step split into forward, backward and optimizer, every K4
    and K5 input of one step held to its plain version, K4's forward launch
@@ -216,7 +224,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    printed; (b) on a real one-rank NCCL world, hymba-1.5b at full width
    prefilled on 4 x 2048 tokens plainly and with its parameters laid out
    on a 1 x 1 mesh under a ``ShardingContext``: logits and cache bit-equal,
-   32 K4 and 32 K5 launches in each; (c) deepseek-moe-16b's smoke config
+   32 launches each of K4, K5 and the mixer's prologue and epilogue in
+   each; (c) deepseek-moe-16b's smoke config
    checkpointed and restored with ``shardings`` onto that mesh, every leaf
    bit-equal on the placements asked for;
 18. the programs across ranks: the ``torch.distributed`` programs on
@@ -3141,6 +3150,109 @@ def k4_k5_parity(dev) -> None:
         f"path")
 
 
+# The mixer's prologue and epilogue against their plain versions run in
+# float32 on the same (widened) inputs: one bf16 rounding at each bf16
+# output and at the conv output behind dtx, B and C (2^-9 of the value),
+# held to 2^-8 of it plus float32 round-off; cumA, float32 throughout, to
+# 1e-5.
+MIXER_REL = 2.0 ** -8
+# The benchmark's prefill steps: (label, rows, positions, heads, head dim,
+# state), 16,384 tokens in chunks of 128, conv kernel 4
+MIXER_STEPS = (("hymba-1.5b prefill-long", 8, 2048, 50, 64, 16),
+               ("granite-4.0-h-small prefill-long16k", 4, 4096, 128, 64,
+                128))
+
+
+def mixer_err(got, want, what: str, rel: float = MIXER_REL) -> float:
+    """The worst abs error of ``got`` against ``want``; raises past ``rel
+    |want| + 1e-5 (1 + max |want|)``."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = rel * want.abs() + 1e-5 * (1 + want.abs().max())
+    if bool((err > tol).any()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"ssm mixer {what} off by up to "
+                             f"{float(err.max())}")
+    return float(err.max())
+
+
+def mixer_kernels(dev) -> dict:
+    """The prologue and epilogue kernels at each of ``MIXER_STEPS``: held
+    to their plain versions, then timed (CUDA events): the wrapper, the
+    launch alone, the plain torch-op chain the mixer ran before them (the
+    plain version on the bf16 inputs) and the byte bound at 3.35 TB/s
+    (every input read once, every output written once)."""
+    from repro_torch.kernels import ssm_mixer as fused
+
+    gen = torch.Generator(device=dev).manual_seed(35)
+    fused.reset_launches()
+    out = {}
+    for label, b, l, h, hd, n in MIXER_STEPS:
+        di, q, K = h * hd, 128, 4
+        bc, tokens = b * l // q, b * l
+
+        def rnd(*shape, scale=1.0):
+            return scale * torch.randn(*shape, generator=gen, device=dev)
+        zx = rnd(b, l, 2 * di + 2 * n + h).bfloat16()
+        w = rnd(K, di + 2 * n, scale=0.5).bfloat16()
+        cb = rnd(di + 2 * n, scale=0.1).bfloat16()
+        dt_bias = rnd(h)
+        A_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+        xbc, dt = zx[..., di:2 * di + 2 * n], zx[..., 2 * di + 2 * n:]
+        pro_args = (xbc, dt, w, cb, dt_bias, A_log, n, q)
+        pro = fused.prologue(*pro_args)
+        want = fused.prologue_plain(xbc.float(), dt.float(), w.float(),
+                                    cb.float(), dt_bias, A_log, n, q)
+        errs = {what: mixer_err(g, wt, what, 1e-5 if what == "cumA"
+                                else MIXER_REL)
+                for g, wt, what in zip(pro, want,
+                                       ("dtx", "Bm", "Cm", "cumA", "x"))}
+        epi_args = (rnd(bc * h, q, hd), rnd(b, l // q, q, h, hd), pro[3],
+                    pro[4], zx[..., :di], rnd(h), 1 + rnd(di, scale=0.1))
+        got = fused.epilogue(*epi_args, 1e-5)
+        wide = [t.float() if t.dtype == torch.bfloat16 else t
+                for t in epi_args]
+        errs["out"] = mixer_err(got, fused.epilogue_plain(*wide, 1e-5),
+                                "out")
+        reps = 20
+        xbc_rows, dt_rows = fused._rows(xbc), fused._rows(dt)
+        weights = fused._f32(w, cb, dt_bias, A_log)
+        epi_out = torch.empty_like(got)
+        pro_bytes = tokens * ((di + 2 * n + h) * 2 + di * 4 + di * 2
+                              + 2 * n * 4 + h * 4)
+        epi_bytes = tokens * (2 * di * 4 + h * 4 + 3 * di * 2)
+        figs = dict(
+            prologue=dict(
+                ms=cuda_ms(lambda: fused.prologue(*pro_args), reps),
+                kernel_ms=cuda_ms(lambda: fused._prologue_cuda(
+                    xbc_rows, dt_rows, *weights, pro, K), reps),
+                plain_ms=cuda_ms(lambda: fused.prologue_plain(*pro_args),
+                                 reps),
+                bytes=pro_bytes, bound_ms=pro_bytes / HBM_BYTES_PER_S * 1e3),
+            epilogue=dict(
+                ms=cuda_ms(lambda: fused.epilogue(*epi_args, 1e-5), reps),
+                kernel_ms=cuda_ms(lambda: fused._epilogue_cuda(
+                    *epi_args[:4], fused._rows(epi_args[4]), *epi_args[5:],
+                    1e-5, epi_out), reps),
+                plain_ms=cuda_ms(lambda: fused.epilogue_plain(
+                    *epi_args, 1e-5), reps),
+                bytes=epi_bytes, bound_ms=epi_bytes / HBM_BYTES_PER_S * 1e3))
+        for name, f in figs.items():
+            log(f"ssm_{name} at {label}'s step ({b} x {l} tokens, h {h}, p "
+                f"{hd}, n {n}): wrapper {f['ms']:.4f} ms, launch alone "
+                f"{f['kernel_ms']:.4f} ms "
+                f"({f['bytes'] / f['kernel_ms'] / 1e6:.0f} GB/s), plain "
+                f"torch-op chain {f['plain_ms']:.4f} ms, bound "
+                f"{f['bound_ms']:.4f} ms (bytes: {f['bytes']})")
+        log(f"ssm mixer kernels at {label}: max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        out[label] = dict(figs, max_abs_err=errs)
+    torch.cuda.synchronize()
+    launches = dict(fused.LAUNCHES)
+    log(f"ssm mixer kernels: launches in this phase {launches}")
+    return dict(source="src/repro_torch/kernels/csrc/ssm_mixer.cu",
+                launches=launches, steps=out)
+
+
 # -- phases 13 and 14: the model -------------------------------------------------
 
 def prompt_inputs(cfg, B: int, S: int, seed: int) -> dict:
@@ -3283,6 +3395,7 @@ def full_model():
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import ssm_mixer as fused
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.nn import init_params
 
@@ -3311,16 +3424,26 @@ def full_model():
     with spy_ops(("flash_attention", "ssd_intra_chunk")) as captured:
         fa.reset_launches()
         ssd.reset_launches()
+        fused.reset_launches()
         (logits, cache), t_counted = sync_time(
             lambda: prefill_step(model, batch))
         launches = {**fa.LAUNCHES, **ssd.LAUNCHES}
+        mixer = dict(fused.LAUNCHES)
+    mamba = sum(k in ("ssm", "hybrid") for k in cfg.layer_kinds)
     log(f"full model prefill launches: {launches} (expected "
-        f"{cfg.n_layers} each, one a layer)")
+        f"{cfg.n_layers} each, one a layer, K4's backward none); the "
+        f"mixer's prologue and "
+        f"epilogue {mixer} (expected {mamba} each, one a Mamba2 layer)")
     for name, n in launches.items():
-        if n != cfg.n_layers:
+        # K4's backward kernels run in training only
+        want = 0 if name == "flash_attention_bwd" else cfg.n_layers
+        if n != want:
             raise AssertionError(f"{name} launched {n} times in the "
-                                 f"full-width prefill, expected "
-                                 f"{cfg.n_layers}")
+                                 f"full-width prefill, expected {want}")
+    if set(mixer.values()) != {mamba}:
+        raise AssertionError(f"the mixer's kernels launched {mixer} times "
+                             f"in the full-width prefill, expected {mamba} "
+                             "each")
     if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(
             torch.isfinite(logits.float()).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
@@ -4099,6 +4222,7 @@ def cut_models() -> None:
     from repro_torch.configs import ALL_IDS, get_config, get_smoke_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import ssm_mixer as fused
     from repro_torch.launch.steps import make_train_step
     from repro_torch.nn import init_params, params_from_numpy, params_to_numpy
     from repro_torch.train.optim import AdamWConfig, init_opt_state
@@ -4114,6 +4238,7 @@ def cut_models() -> None:
         cpu = params_from_numpy(tree, cfg, device="cpu", dtype=torch.float32)
         fa.reset_launches()
         ssd.reset_launches()
+        fused.reset_launches()
         (l_g, g_g), t_gpu = sync_time(lambda: loss_and_grads(gpu, cfg, batch,
                                                              None))
         launches = (fa.LAUNCHES["flash_attention"],
@@ -4122,6 +4247,11 @@ def cut_models() -> None:
             raise AssertionError(f"training {arch} ({label}): K4/K5 launched"
                                  f" {launches}, expected "
                                  f"{expected_launches(cfg)}")
+        # the mixer's kernels beside K5: forward and recompute
+        if set(fused.LAUNCHES.values()) != {launches[1]}:
+            raise AssertionError(f"training {arch} ({label}): the mixer's "
+                                 f"kernels launched {fused.LAUNCHES}, "
+                                 f"expected {launches[1]} each")
         t = time.perf_counter()
         l_c, g_c = loss_and_grads(cpu, cfg, batch, "cpu")
         t_cpu = time.perf_counter() - t
@@ -4362,6 +4492,7 @@ def hymba_training() -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import ssm_mixer as fused
     from repro_torch.launch.steps import make_train_step
     from repro_torch.nn import init_params
     from repro_torch.train.optim import AdamWConfig, init_opt_state
@@ -4380,6 +4511,7 @@ def hymba_training() -> dict:
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     ssd.reset_launches()
+    fused.reset_launches()
     walls, mets = [], []
     for _ in range(steps):
         (_, opt_state, met), w = sync_time(
@@ -4387,14 +4519,17 @@ def hymba_training() -> dict:
         walls.append(w)
         mets.append(met)
     peak = torch.cuda.max_memory_allocated()
-    launches = {**fa.LAUNCHES, **ssd.LAUNCHES}
+    launches = {**fa.LAUNCHES, **ssd.LAUNCHES, **fused.LAUNCHES}
     want = steps * 2 * cfg.n_layers
     if launches["flash_attention"] != want or launches[
             "ssd_intra_chunk"] != want or launches["flash_attention_tc"] \
-            != want or launches["flash_attention_bwd"] != want // 2:
+            != want or launches["flash_attention_bwd"] != want // 2 \
+            or launches["ssm_prologue"] != want \
+            or launches["ssm_epilogue"] != want:
         raise AssertionError(f"hymba training launched {launches} in "
                              f"{steps} steps, expected {want} of K4 (all "
-                             f"on the tensor cores) and of K5, and "
+                             f"on the tensor cores), of K5 and of the "
+                             f"mixer's prologue and epilogue, and "
                              f"{want // 2} of K4's backward")
     losses = [float(m["loss"]) for m in mets]
     norms = [float(m["grad_norm"]) for m in mets]
@@ -4415,9 +4550,9 @@ def hymba_training() -> dict:
         f"{tokens / med:.0f} training tokens/s; model flops a step "
         f"{model_flops:.4g} (6 N tokens + causal attention "
         f"{attn_flops:.4g}), {100 * mfu:.2f} % of 989 TFLOP/s bf16; "
-        f"max_memory_allocated {peak} bytes; K4/K5 launches {launches} "
-        f"({want} each = {steps} steps x 2 x {cfg.n_layers}: forward and "
-        f"recompute; K4's backward {want // 2}, one a layer); losses {[round(x, 4) for x in losses]}, grad norms "
+        f"max_memory_allocated {peak} bytes; K4/K5/mixer launches "
+        f"{launches} ({want} each = {steps} steps x 2 x {cfg.n_layers}: "
+        f"forward and recompute; K4's backward {want // 2}, one a layer); losses {[round(x, 4) for x in losses]}, grad norms "
         f"{[round(x, 4) for x in norms]}")
     split = train_split_ms(model, cfg, opt_state, batch, ocfg)
     log(f"training (d) one step split by CUDA events: " + ", ".join(
@@ -4620,6 +4755,7 @@ def layout_on_the_card() -> None:
     from repro_torch.ckpt import load_checkpoint, save_checkpoint
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
+    from repro_torch.kernels import ssm_mixer as fused
     from repro_torch.launch.mesh import make_mesh, one_rank_world
     from repro_torch.nn import model as M
     from repro_torch.parallel import context as pctx
@@ -4634,9 +4770,12 @@ def layout_on_the_card() -> None:
     def counted(fn):
         fa.reset_launches()
         ssd.reset_launches()
+        fused.reset_launches()
         out, wall = sync_time(fn)
         return out, wall, (fa.LAUNCHES["flash_attention"],
-                           ssd.LAUNCHES["ssd_intra_chunk"])
+                           ssd.LAUNCHES["ssd_intra_chunk"],
+                           fused.LAUNCHES["ssm_prologue"],
+                           fused.LAUNCHES["ssm_epilogue"])
 
     (logits, cache), t_plain, n_plain = counted(
         lambda: M.prefill(model, cfg, tokens, max_seq=max_seq))
@@ -4655,9 +4794,9 @@ def layout_on_the_card() -> None:
                 return M.prefill(model, cfg, tok, max_seq=max_seq)
 
         (l2, c2), t_layout, n_layout = counted(laid_out)
-        want = (cfg.n_layers, cfg.n_layers)
+        want = (cfg.n_layers,) * 4
         if n_plain != want or n_layout != want:
-            raise AssertionError(f"K4/K5 launches {n_plain} plain, "
+            raise AssertionError(f"K4/K5/mixer launches {n_plain} plain, "
                                  f"{n_layout} under the layout; want {want}")
         if not torch.equal(l2.full_tensor(), logits):
             raise AssertionError("logits under the 1 x 1 layout differ")
@@ -4670,7 +4809,8 @@ def layout_on_the_card() -> None:
             f"plain {t_plain:.3f} s, under the 1 x 1 layout {t_layout:.3f} s "
             f"(parameters laid out in {t_dist:.3f} s); logits and "
             f"{sum(len(v) for v in cache.values())} cache leaves bit-equal; "
-            f"K4/K5 launches {n_plain} plain, {n_layout} laid out")
+            f"K4/K5/prologue/epilogue launches {n_plain} plain, {n_layout} "
+            "laid out")
         del model, cache, c2, logits, l2
         torch.cuda.empty_cache()
 
@@ -5359,6 +5499,7 @@ def main() -> int:
     kernel_parity(ks, dev)
     k3_parity(dev)
     k4_k5_parity(dev)
+    mixer = mixer_kernels(dev)
     small_vcycle(small_slice())
     launches, captured, levels, pats, verdicts = full_slice(ks)
     k3_run = full_vcycle(levels)
@@ -5416,6 +5557,7 @@ def main() -> int:
         "NCCL")
     print(nvidia_smi("name,power.limit"))
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"port_only_kernels": mixer}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,28 @@ Prefill uses the SSD block decomposition: the intra-chunk step is one K5
 call, :func:`repro_torch.kernels.ops.ssd_intra_chunk`, over all G = b * nc
 * h (batch, chunk, head) programs — the hand-written kernel on the card,
 its plain version on CPU tensors — and the inter-chunk recurrence (nc small
-state updates) stays plain torch, as it stays jnp in the reference.  Decode
-is the O(1) recurrent update, plain torch.  Single B/C group, as in the
-configs.
+state updates and the product ``C S_in``, span ``repro_torch.ssd_inter``)
+stays plain torch, as it stays jnp in the reference.
+
+Around them, :func:`ssm_mixer` takes one of two paths (:func:`_fused`):
+
+- fused, for CUDA tensors: two kernels of
+  :mod:`repro_torch.kernels.ssm_mixer`, the prologue (``zxbcdt`` to K5's
+  inputs: conv, SiLU, softplus, ``cumA``, ``dt x``) and the epilogue (K5's
+  and the recurrence's outputs to ``out_proj``'s input: ``exp(cumA)``
+  decay, ``D x``, the gate and the RMSNorm), float32 from the conv through
+  the norm with one rounding at each kernel's output.  Under autograd (the
+  training step and its recompute) their backward is the plain pieces'
+  (:mod:`repro_torch.kernels.ssm_mixer`).  Under a layout the kernels run
+  on local shards: through :func:`head_local` where the heads split over
+  the model axis, the norm's sum of squares then added over that axis;
+  else through :func:`item_local`, each model rank taking whole rows;
+- plain, for CPU and ``meta`` tensors (the tests, the dry run): the same
+  steps as torch ops, which round to bf16 where the mixer always did.
+
+Counters ``ssm.calls`` (every mixer call) and ``ssm.fused`` (those on the
+fused path).  Decode is the O(1) recurrent update, plain torch.  Single B/C
+group, as in the configs.
 """
 from __future__ import annotations
 
@@ -16,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssm_mixer as ssm_mixer_k
 from repro_torch.parallel.context import (constrain, current, gather_model,
                                           head_local, is_dtensor, item_local,
                                           local_op, local_product, merge_dims,
@@ -50,16 +70,43 @@ def _split_proj(zxbcdt, cfg: ArchConfig):
 
 
 def _causal_conv(xBC, w, b, K: int):
-    """Depthwise causal conv1d, kernel K (stacked-slice form); a DTensor
-    pads its shards (the sequence whole on each)."""
+    """Depthwise causal conv1d, kernel K (stacked-slice form,
+    :func:`ssm_mixer.conv_plain`); a DTensor pads its shards (the sequence
+    whole on each)."""
     if is_dtensor(xBC):
         pad = local_op(lambda a: F.pad(a, (0, 0, K - 1, 0)),
                        replicate_dims(xBC, [1]))
     else:
         pad = F.pad(xBC, (0, 0, K - 1, 0))
-    L = xBC.shape[1]
-    out = sum(pad[:, k:k + L, :] * w[k] for k in range(K))
-    return F.silu((out + b).float()).to(xBC.dtype)
+    return ssm_mixer_k.conv_plain(pad, w, b)
+
+
+def _scan(dtx, Bm, Cm, cumA, b: int):
+    """K5 and the inter-chunk recurrence on K5's layout
+    (:mod:`repro_torch.kernels.ssm_mixer`): ``(y_intra [b nc h, q, p], C
+    S_in [b, nc, q, h, p], final state [b, h, n, p])``, float32.  The
+    recurrence's output is left undecayed: its ``exp(cumA)`` factor is
+    applied where the output is put together."""
+    bc, h, q, p = dtx.shape
+    n, nc = Bm.shape[-1], bc // b
+    # every input as a [b*nc, h, q, x] view: B and C of a (batch, chunk)
+    # expanded over its heads with stride 0
+    with obs.span("repro_torch.ssd_intra", G=bc, h=h, q=q, n=n, p=p):
+        y_intra, S_c = ops.ssd_intra_chunk(
+            dtx, Bm.reshape(bc, 1, q, n).expand(bc, h, q, n),
+            Cm.reshape(bc, 1, q, n).expand(bc, h, q, n), cumA)
+    S_c = S_c.reshape(b, nc, h, n, p)
+
+    with obs.span("repro_torch.ssd_inter", b=b, nc=nc, h=h, n=n, p=p):
+        chunk_decay = torch.exp(cumA[:, :, -1, 0]).reshape(b, nc, h)
+        s = torch.zeros(b, h, n, p, dtype=torch.float32, device=dtx.device)
+        S_in = []
+        for c in range(nc):
+            S_in.append(s)
+            s = s * chunk_decay[:, c, :, None, None] + S_c[:, c]
+        S_in = torch.stack(S_in, dim=1)                    # [b,nc,h,n,p]
+        CS = torch.einsum("bcin,bchnp->bcihp", Cm.reshape(b, nc, q, n), S_in)
+    return y_intra, CS, s
 
 
 def ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk: int,
@@ -71,50 +118,10 @@ def ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk: int,
     Returns y: [b, l, h, p] float32 (and the final SSD state [b, h, n, p]
     when ``return_final_state``, which seeds decode).
     """
-    b, l, h, p = x.shape
-    n = Bm.shape[-1]
-    q = min(chunk, l)
-    nc = l // q
-    if nc * q != l:
-        raise ValueError(f"seq {l} not divisible by chunk {q}")
-
-    xr = x.reshape(b, nc, q, h, p)
-    Br = Bm.reshape(b, nc, q, n).float()
-    Cr = Cm.reshape(b, nc, q, n).float()
-    dtr = dt.reshape(b, nc, q, h).float()
-    A_log, D = (t.float().reshape(-1 if t.ndim == 2 else 1, 1, 1, h)
-                for t in (A_log, D))                   # [b|1,1,1,h]
-    a = -torch.exp(A_log) * dtr                            # [b,nc,q,h]
-    cumA = torch.cumsum(a, dim=2)                          # inclusive
-    dtx = xr.float() * dtr[..., None]                      # dt_j * x_j
-
-    # ---- intra-chunk scores, y_intra and chunk states: one K5 call ---------
-    # every input as a [b*nc, h, q, x] view: B and C of a (batch, chunk)
-    # expanded over its heads with stride 0, dtx and cumA transposed
-    bc = b * nc
-    with obs.span("repro_torch.ssd_intra", G=bc, h=h, q=q, n=n, p=p):
-        y_intra, S_c = ops.ssd_intra_chunk(
-            dtx.permute(0, 1, 3, 2, 4).reshape(bc, h, q, p),
-            Br.reshape(bc, 1, q, n).expand(bc, h, q, n),
-            Cr.reshape(bc, 1, q, n).expand(bc, h, q, n),
-            cumA.permute(0, 1, 3, 2).reshape(bc, h, q, 1))
-    y_intra = y_intra.reshape(b, nc, h, q, p).permute(0, 1, 3, 2, 4)
-    S_c = S_c.reshape(b, nc, h, n, p)
-
-    # ---- inter-chunk recurrence --------------------------------------------
-    with obs.span("repro_torch.ssd_inter", b=b, nc=nc, h=h, n=n, p=p):
-        chunk_decay = torch.exp(cumA[:, :, -1, :])         # [b,nc,h]
-        s = torch.zeros(b, h, n, p, dtype=torch.float32, device=x.device)
-        S_in = []
-        for c in range(nc):
-            S_in.append(s)
-            s = s * chunk_decay[:, c, :, None, None] + S_c[:, c]
-        S_in = torch.stack(S_in, dim=1)                    # [b,nc,h,n,p]
-
-        y_inter = torch.einsum("bcin,bchnp->bcihp", Cr, S_in) \
-            * torch.exp(cumA)[..., None]
-    y = y_intra + y_inter + D[..., None] * xr.float()
-    y = y.reshape(b, l, h, p)
+    dtx, Br, Cr, cumA = ssm_mixer_k.scan_inputs_plain(x, Bm, Cm, dt, A_log,
+                                                      chunk)
+    y_intra, CS, s = _scan(dtx, Br, Cr, cumA, x.shape[0])
+    y = ssm_mixer_k.combine_plain(y_intra, CS, cumA, x, D)
     if return_final_state:
         return y, s
     return y
@@ -175,10 +182,93 @@ def _in_proj(xin, w):
     return replicate_dims(local_product(constrain(xin, spec), w), [1])
 
 
+def _fused(zxbcdt) -> bool:
+    """Whether the mixer takes its two kernels: on CUDA tensors, plain or
+    a layout's."""
+    return zxbcdt.device.type == "cuda"
+
+
+def _mixer_local(xBC, dt, z, conv_w, conv_b, dt_bias, A_log, D, norm,
+                 cfg: ArchConfig, group=None):
+    """The fused path on plain tensors, from ``in_proj``'s slices to
+    ``out_proj``'s input: the prologue kernel, K5 and the recurrence, the
+    epilogue kernel (its norm over ``group``'s heads where given); returns
+    it and the scan's final state."""
+    dtx, Bm, Cm, cumA, x = ssm_mixer_k.prologue(
+        xBC, dt, conv_w, conv_b, dt_bias, A_log, cfg.ssm_state,
+        cfg.ssm_chunk)
+    y_intra, CS, s_fin = _scan(dtx, Bm, Cm, cumA, xBC.shape[0])
+    y = ssm_mixer_k.epilogue(y_intra, CS, cumA, x, z, D, norm, cfg.norm_eps,
+                             group)
+    return y, s_fin
+
+
+def _mixer_fused(zxbcdt, p, cfg: ArchConfig):
+    """:func:`_mixer_local` on ``zxbcdt``'s slices; a layout's DTensors
+    rank by rank.  Where the heads split over the model axis each rank
+    runs its heads (:func:`head_local`; B and C, shared by the heads, whole
+    on every rank) and the norm adds its sums of squares over the axis;
+    else each model rank runs whole rows of its data shard in turn
+    (:func:`item_local`)."""
+    di, n, h, phd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
+                     cfg.ssm_head_dim)
+    z, xBC, dt = _split_proj(zxbcdt, cfg)
+    names = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm")
+    if not is_dtensor(zxbcdt):
+        return _mixer_local(xBC, dt, z, *(p[k] for k in names), cfg)
+    b, l, _ = zxbcdt.shape
+    if h % model_size(zxbcdt):
+        def rows(rank, ranks, xBC, dt, z, *weights):
+            picked = torch.arange(rank, max(rank, xBC.shape[0]), ranks,
+                                  device=xBC.device)
+            y = z.new_zeros(z.shape)
+            s = z.new_zeros(z.shape[0], h, n, phd, dtype=torch.float32)
+            if len(picked):
+                y_i, s_i = _mixer_local(xBC[picked], dt[picked], z[picked],
+                                        *weights, cfg)
+                y[picked], s[picked] = y_i, s_i
+            return y, s
+
+        return item_local(rows, (xBC, dt, z, *(p[k] for k in names)),
+                          (True,) * 3 + (False,) * 6, 2)
+
+    ctx = current()
+    axis = ctx.model_axis if ctx is not None else "model"
+    K = cfg.ssm_conv_kernel
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    args = (split_dim(xBC[..., :di], (b, l, h, phd)), xBC[..., di:], dt,
+            split_dim(z, (b, l, h, phd)),
+            split_dim(conv_w[:, :di], (K, h, phd)), conv_w[:, di:],
+            split_dim(conv_b[:di], (h, phd)), conv_b[di:], p["dt_bias"],
+            p["A_log"], p["D"], split_dim(p["norm"], (h, phd)))
+
+    def heads(x, BC, dt, z, wx, wbc, bx, bbc, dt_bias, A_log, D, norm):
+        bl, ll, hl, _ = x.shape
+        group = None if hl == h else zxbcdt.device_mesh.get_group(axis)
+        y, s = _mixer_local(
+            torch.cat([x.reshape(bl, ll, hl * phd), BC], -1), dt,
+            z.reshape(bl, ll, hl * phd),
+            torch.cat([wx.reshape(K, hl * phd), wbc], -1),
+            torch.cat([bx.reshape(hl * phd), bbc]), dt_bias, A_log, D,
+            norm.reshape(hl * phd), cfg, group)
+        return y.reshape(bl, ll, hl, phd), s
+
+    y, s = head_local(heads, args, (2, None, 2, 2, 1, None, 0, None, 0, 0,
+                                    0, 0), (2, 1),
+                      batch_dims=(0,) * 4 + (None,) * 8)
+    return merge_dims(y, 2), s
+
+
 def ssm_mixer(xin, p, cfg: ArchConfig, return_state: bool = False):
     """Full Mamba2 mixer (prefill).  xin: [b, l, d] -> [b, l, d]; under a
     layout ``xin`` may be sequence-sharded over the model axis
     (:func:`_in_proj`).
+
+    CUDA inputs take the fused path (:func:`_fused`): the prologue kernel,
+    K5, the recurrence and the epilogue kernel, under autograd and under a
+    layout too.  CPU and ``meta`` inputs take the plain torch ops.
+    Counters ``ssm.calls`` (every call) and ``ssm.fused`` (the fused
+    path's).
 
     With ``return_state``, also returns (conv_state, ssd_state) ready for
     decode continuation.
@@ -186,18 +276,24 @@ def ssm_mixer(xin, p, cfg: ArchConfig, return_state: bool = False):
     di, n, h, phd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
                      cfg.ssm_head_dim)
     K = cfg.ssm_conv_kernel
+    obs.count("ssm.calls", 1)
     zxbcdt = _in_proj(xin, p["in_proj"])
     z, xBC_raw, dt = _split_proj(zxbcdt, cfg)
-    xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"], K)
-    x = split_dim(xBC[..., :di], (xin.shape[0], xin.shape[1], h, phd))
-    Bm = xBC[..., di:di + n]
-    Cm = xBC[..., di + n:]
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    res = _ssd(x, Bm, Cm, dt, p["A_log"], p["D"], cfg.ssm_chunk,
-               return_state)
-    y, s_fin = res if return_state else (res, None)
-    y = merge_dims(y, 2).to(xin.dtype)
-    y = rmsnorm(y * F.silu(z.float()).to(xin.dtype), p["norm"], cfg.norm_eps)
+    if _fused(zxbcdt):
+        obs.count("ssm.fused", 1)
+        y, s_fin = _mixer_fused(zxbcdt, p, cfg)
+    else:
+        xBC = _causal_conv(xBC_raw, p["conv_w"], p["conv_b"], K)
+        x = split_dim(xBC[..., :di], (xin.shape[0], xin.shape[1], h, phd))
+        Bm = xBC[..., di:di + n]
+        Cm = xBC[..., di + n:]
+        dt = F.softplus(dt.float() + p["dt_bias"].float())
+        res = _ssd(x, Bm, Cm, dt, p["A_log"], p["D"], cfg.ssm_chunk,
+                   return_state)
+        y, s_fin = res if return_state else (res, None)
+        y = merge_dims(y, 2).to(xin.dtype)
+        y = rmsnorm(y * F.silu(z.float()).to(xin.dtype), p["norm"],
+                    cfg.norm_eps)
     out = y @ p["out_proj"]
     if return_state:
         conv_state = xBC_raw[:, -(K - 1):, :].float()

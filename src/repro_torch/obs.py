@@ -29,7 +29,8 @@ the recompute of checkpointed layers on threads of its own).  A step span
 (:func:`step`) opens a new step id, which every span inside it carries; a
 span opened on a thread with no open span (autograd's) carries the latest
 step opened.  A step span also keeps the hand-written kernels' launches in
-it: the change of the ``LAUNCHES`` counts of K1-K5 over the step.
+it: the change of the ``LAUNCHES`` counts of K1-K5 and of the Mamba2
+mixer's prologue and epilogue kernels over the step.
 
 Spans of the port (each name prefixed ``repro_torch.``):
 
@@ -43,7 +44,7 @@ Spans of the port (each name prefixed ``repro_torch.``):
 ``attn_core``      K4 (``kernels.ops.mha_flash``; ``B S H KH D causal``)
 ``ssm``            the Mamba2 mixer (``nn.ssm.ssm_mixer``)
 ``ssd_intra``      K5, the SSD intra-chunk step (``G h q n p``)
-``ssd_inter``      the SSD inter-chunk recurrence and its output
+``ssd_inter``      the SSD inter-chunk recurrence and its product ``C S_in``
 ``mlp``            a dense layer's MLP (not the shared experts)
 ``moe``            the MoE layer (``nn.moe.moe_ffn``)
 ``moe.route``      its router (``nn.moe.route``)
@@ -60,7 +61,9 @@ Spans of the port (each name prefixed ``repro_torch.``):
 ``ssd_bwd``        K5's backward
 =================  ==========================================================
 
-Counters: ``moe.assignments`` (token-expert assignments routed, D T K a
+Counters: ``ssm.calls`` (Mamba2 mixer calls) and ``ssm.fused`` (those on
+its fused prologue and epilogue kernels, ``nn.ssm.ssm_mixer``);
+``moe.assignments`` (token-expert assignments routed, D T K a
 routing chunk), ``moe.local`` (those to experts this layer holds, counted
 on the device), ``moe.slots`` (rows of the ``[D, E, C, d]`` capacity
 buffer, D E C, E the experts held) and ``moe.kept`` (assignments that
@@ -236,12 +239,14 @@ def _stack() -> list:
 
 
 def _launch_counts() -> dict:
-    """The ``LAUNCHES`` counts of K1-K5, in one dict."""
-    from repro_torch.kernels import comm_stack, flash_attention, spmv_ell, ssd
+    """The ``LAUNCHES`` counts of K1-K5 and of the mixer's prologue and
+    epilogue, in one dict."""
+    from repro_torch.kernels import (comm_stack, flash_attention, spmv_ell,
+                                     ssd, ssm_mixer)
 
     out: dict = {}
     for table in (comm_stack.LAUNCHES, spmv_ell.LAUNCHES,
-                  flash_attention.LAUNCHES, ssd.LAUNCHES):
+                  flash_attention.LAUNCHES, ssd.LAUNCHES, ssm_mixer.LAUNCHES):
         out.update(table)
     return out
 
@@ -308,7 +313,7 @@ def span(name: str, **attrs):
 
 def step(name: str, **attrs):
     """:func:`span` that opens a new step id (its own id) for every span
-    inside it, and keeps the K1-K5 launches made in it."""
+    inside it, and keeps the hand-written launches made in it."""
     if not on():
         return _NULL
     return _Open(name, attrs, True)

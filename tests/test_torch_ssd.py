@@ -24,7 +24,9 @@ from repro.kernels.ssd import ssd_intra_chunk as ref_ssd  # noqa: E402
 from repro.nn import ssm as ref_ssm  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.kernels import ssd  # noqa: E402
+from repro_torch.kernels import ssm_mixer as fused  # noqa: E402
 from repro_torch.nn import ssm  # noqa: E402
 
 KERNEL_TOL = 2e-4
@@ -269,6 +271,376 @@ def test_ssm_decode_matches_repro(arch):
         x = x[::-1].copy()
 
 
+# -- the mixer's prologue and epilogue: the plain versions --------------------
+def _mixer_inputs(cfg, seed, b=2, chunks=2, dtype=torch.float32):
+    p = {k: _t(v) for k, v in _ssm_params(cfg, seed).items()}
+    x = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (b, chunks * cfg.ssm_chunk, cfg.d_model)).astype(np.float32))
+    if dtype != torch.float32:
+        p = {k: v.to(dtype) if k in ("in_proj", "out_proj", "conv_w",
+                                      "conv_b") else v
+             for k, v in p.items()}
+        x = x.to(dtype)
+    return x, p
+
+
+@pytest.mark.parametrize("return_state", [False, True])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "granite-4.0-h-small"])
+def test_fused_path_pieces_give_the_mixer(arch, return_state):
+    # the fused path's steps on their plain versions: prologue_plain, K5's
+    # plain version and the recurrence (ssm._scan), epilogue_plain; the
+    # same float32 ops as the mixer's plain path, in layouts of their own
+    cfg = get_smoke_config(arch)
+    x, p = _mixer_inputs(cfg, 5)
+    want = ssm.ssm_mixer(x, p, cfg, return_state=return_state)
+    zxbcdt = x @ p["in_proj"]
+    b, l, di, h, q, n = (x.shape[0], x.shape[1], cfg.ssm_d_inner,
+                         cfg.ssm_heads, cfg.ssm_chunk, cfg.ssm_state)
+    dtx, Bm, Cm, cumA, xs = fused.prologue_plain(
+        zxbcdt[..., di:2 * di + 2 * n], zxbcdt[..., 2 * di + 2 * n:],
+        p["conv_w"], p["conv_b"], p["dt_bias"], p["A_log"], n, q)
+    assert dtx.shape == (b * l // q, h, q, di // h)
+    assert Bm.shape == Cm.shape == (b * l // q, q, cfg.ssm_state)
+    assert cumA.shape == (b * l // q, h, q, 1) and xs.shape == (b, l, di)
+    y_intra, CS, s = ssm._scan(dtx, Bm, Cm, cumA, b)
+    y = fused.epilogue_plain(y_intra, CS, cumA, xs, zxbcdt[..., :di],
+                             p["D"], p["norm"], cfg.norm_eps)
+    got = y @ p["out_proj"]
+    if return_state:
+        want, (want_conv, want_s) = want
+        K = cfg.ssm_conv_kernel
+        torch.testing.assert_close(s, want_s, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(
+            zxbcdt[:, -(K - 1):, di:2 * di + 2 * cfg.ssm_state], want_conv)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("return_state", [False, True])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "granite-4.0-h-small"])
+def test_fused_path_on_cpu_tensors_equals_the_plain_path(arch, return_state):
+    # bf16 CPU tensors: the wrappers take their plain versions, whose ops
+    # are the plain path's, so the fused path's output is the same bits
+    cfg = get_smoke_config(arch)
+    x, p = _mixer_inputs(cfg, 7, dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = ssm.ssm_mixer(x, p, cfg, return_state=return_state)
+        y, s = ssm._mixer_fused(x @ p["in_proj"], p, cfg)
+    assert y.dtype == torch.bfloat16
+    if return_state:
+        want, (_, want_s) = want
+        assert torch.equal(s, want_s)
+    assert torch.equal(y @ p["out_proj"], want)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "granite-4.0-h-small"])
+def test_fused_path_gradients_are_the_plain_paths(arch):
+    # under autograd the prologue's and epilogue's backward run their plain
+    # versions again on the saved inputs: on CPU tensors (whose forward is
+    # the plain version too) every gradient is the plain path's
+    cfg = get_smoke_config(arch)
+    x, p = _mixer_inputs(cfg, 13)
+    dy = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        x.shape).astype(np.float32))
+    grads = []
+    for path in ("plain", "fused"):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xa = x.clone().requires_grad_(True)
+        if path == "plain":
+            out = ssm.ssm_mixer(xa, leaves, cfg)
+        else:
+            y, _ = ssm._mixer_fused(xa @ leaves["in_proj"], leaves, cfg)
+            out = y @ leaves["out_proj"]
+        (out * dy).sum().backward()
+        grads.append({"x": xa.grad, **{k: v.grad for k, v in leaves.items()}})
+    for k, want in grads[0].items():
+        torch.testing.assert_close(grads[1][k], want, rtol=1e-5, atol=1e-6,
+                                   msg=k)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "granite-4.0-h-small"])
+def test_fused_path_under_remat_gives_the_plain_loss_and_gradients(
+        arch, monkeypatch):
+    # the training loss with every decoder layer checkpointed, the fused
+    # path forced onto CPU tensors (its Functions saved, recomputed and
+    # differentiated as on the card): the plain path's loss and gradients
+    from repro_torch.nn import init_params, lm_loss
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(17)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 32)).astype(
+        np.int32)}
+    got = []
+    for fused_path in (False, True):
+        monkeypatch.setattr(ssm, "_fused", lambda z: fused_path)
+        model = init_params(cfg, seed=3, device="cpu").trainable()
+        before = dict(fused.LAUNCHES)
+        with obs.recording():
+            obs.reset()
+            loss, _ = lm_loss(model, cfg, batch, device="cpu", remat=True)
+            named = dict(model.named_parameters())
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True)
+            counters = obs.snapshot().counters
+            obs.reset()
+        assert fused.LAUNCHES == before
+        mamba = sum(k in ("ssm", "hybrid") for k in cfg.layer_kinds)
+        # the forward and each checkpointed layer's recompute
+        assert counters.get("ssm.fused", 0) == 2 * mamba * fused_path
+        got.append((loss.detach(), {n: g for n, g in zip(named, grads)}))
+    torch.testing.assert_close(got[1][0], got[0][0], rtol=1e-6, atol=1e-6)
+    for name, want in got[0][1].items():
+        g = got[1][1][name]
+        if want is None:
+            assert g is None, name
+        else:
+            torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-6,
+                                       msg=name)
+
+
+def test_fused_path_on_a_one_rank_layout_is_bit_equal():
+    # the fused path under a 1 x 1 layout runs the same pieces on whole
+    # shards (head_local): the same bits as on plain tensors
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh, one_rank_world
+    from repro_torch.parallel import context as pctx
+    cfg = get_smoke_config("hymba-1.5b")
+    x, p = _mixer_inputs(cfg, 15, dtype=torch.bfloat16)
+    with torch.no_grad():
+        want = ssm._mixer_fused(x @ p["in_proj"], p, cfg)
+    with one_rank_world("gloo"):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        laid = {k: distribute_tensor(v, mesh, (Replicate(),) * 2)
+                for k, v in p.items()}
+        xd = distribute_tensor(x, mesh, (Replicate(),) * 2)
+        with torch.no_grad(), pctx.use(
+                pctx.ShardingContext(mesh=mesh, dp_axes=("data",))):
+            got = ssm._mixer_fused(xd @ laid["in_proj"], laid, cfg)
+        for g, w in zip(got, want):
+            assert torch.equal(g.full_tensor(), w)
+
+
+# The fused path on a (1, R) gloo mesh in forked processes against one
+# device, forward and every gradient, float32: R = 2 splits the smoke
+# hymba's 8 heads (each rank its heads, the norm's sum of squares added
+# over the ranks), R = 3 does not (each rank whole rows of the 3).
+_RANKS_SCRIPT = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.distributed.tensor import Replicate, distribute_tensor
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.nn import ssm
+from repro_torch.parallel import context as pctx
+
+RANKS, PORT = int(sys.argv[1]), int(sys.argv[2])
+
+
+def worker(rank):
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{PORT}",
+                            rank=rank, world_size=RANKS)
+    try:
+        cfg = get_smoke_config("hymba-1.5b")
+        gen = torch.Generator().manual_seed(0)
+        p = {k: 0.3 * torch.randn(*s, generator=gen)
+             for k, s in ssm.ssm_param_shapes(cfg).items()}
+        p["A_log"] = torch.log(torch.linspace(1, 4, cfg.ssm_heads))
+        p["norm"] = 1 + 0.1 * torch.randn(cfg.ssm_d_inner, generator=gen)
+        x = torch.randn(3, 2 * cfg.ssm_chunk, cfg.d_model, generator=gen)
+        dy = torch.randn(x.shape, generator=gen)
+
+        def run(x, p):
+            y, s = ssm._mixer_fused(x @ p["in_proj"], p, cfg)
+            return y @ p["out_proj"], s
+
+        leaves = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xa = x.clone().requires_grad_(True)
+        want, want_s = run(xa, leaves)
+        (want * dy).sum().backward()
+        mesh = make_mesh((1, RANKS), ("data", "model"), "cpu")
+        laid = {k: distribute_tensor(v.clone(), mesh, (Replicate(),) * 2)
+                .requires_grad_(True) for k, v in p.items()}
+        xd = distribute_tensor(x.clone(), mesh, (Replicate(),) * 2) \
+            .requires_grad_(True)
+        with pctx.use(pctx.ShardingContext(mesh=mesh, dp_axes=("data",))):
+            got, got_s = run(xd, laid)
+            (got * distribute_tensor(dy, mesh, (Replicate(),) * 2)) \
+                .sum().backward()
+
+        def rel(a, b):
+            return float((a.detach() - b.detach()).abs().max()
+                         / b.detach().abs().max())
+        err = {"out": rel(got.full_tensor(), want),
+               "state": rel(got_s.full_tensor(), want_s),
+               "x": rel(xd.grad.full_tensor(), xa.grad)}
+        err.update({k: rel(laid[k].grad.full_tensor(), leaves[k].grad)
+                    for k in p})
+        if rank == 0:
+            print(json.dumps(err))
+    finally:
+        dist.destroy_process_group()
+
+
+mp.start_processes(worker, nprocs=RANKS, start_method="fork")
+"""
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_fused_path_across_gloo_ranks_equals_one_device(ranks):
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.launch.mesh import _free_port
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", _RANKS_SCRIPT, str(ranks),
+                          str(_free_port())], env=env, capture_output=True,
+                         text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    err = json.loads(out.stdout.strip().splitlines()[-1])
+    # float32 sums split over the ranks (the norm's, the row-parallel
+    # out_proj's, the partial gradients') add in another order
+    assert max(err.values()) < 1e-5, err
+
+
+@pytest.mark.parametrize("where", ["autograd", "cpu", "layout"])
+def test_the_mixer_takes_the_plain_path_off_the_fused_conditions(where):
+    # CPU tensors take the plain path under autograd, without it and on a
+    # layout's DTensors alike: the mixer counts its call, no fused call and
+    # no launch of the fused kernels
+    cfg = get_smoke_config("hymba-1.5b")
+    x, p = _mixer_inputs(cfg, 9, dtype=torch.bfloat16)
+    before = dict(fused.LAUNCHES)
+    with obs.recording():
+        obs.reset()
+        if where == "autograd":
+            x.requires_grad_(True)
+            ssm.ssm_mixer(x, p, cfg).float().sum().backward()
+            assert x.grad is not None
+        elif where == "cpu":
+            with torch.no_grad():
+                ssm.ssm_mixer(x, p, cfg)
+        else:
+            from torch.distributed.tensor import Replicate, distribute_tensor
+
+            from repro_torch.launch.mesh import make_mesh, one_rank_world
+            from repro_torch.parallel import context as pctx
+            with one_rank_world("gloo"):
+                mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+                laid = {k: distribute_tensor(v, mesh, (Replicate(),) * 2)
+                        for k, v in p.items()}
+                xd = distribute_tensor(x, mesh, (Replicate(),) * 2)
+                with torch.no_grad(), pctx.use(
+                        pctx.ShardingContext(mesh=mesh, dp_axes=("data",))):
+                    out = ssm.ssm_mixer(xd, laid, cfg)
+                assert out.shape == x.shape
+        counters = obs.snapshot().counters
+        obs.reset()
+    assert counters.get("ssm.calls") == 1
+    assert counters.get("ssm.fused", 0) == 0
+    assert fused.LAUNCHES == before
+
+
+def _fused_inputs(b=2, l=32, h=4, p=8, n=4, K=4, chunk=16):
+    di = h * p
+    zx = torch.randn(b, l, 2 * di + 2 * n + h).bfloat16()
+    w = torch.randn(K, di + 2 * n).bfloat16()
+    pro = [zx[..., di:2 * di + 2 * n], zx[..., 2 * di + 2 * n:], w,
+           torch.randn(di + 2 * n).bfloat16(), torch.randn(h),
+           torch.randn(h), n, chunk]
+    nc, q = l // min(chunk, l), min(chunk, l)
+    epi = [torch.randn(b * nc * h, q, p), torch.randn(b, nc, q, h, p),
+           torch.randn(b * nc, h, q, 1), torch.randn(b, l, di).bfloat16(),
+           zx[..., :di], torch.randn(h), torch.randn(di)]
+    return pro, epi
+
+
+@pytest.mark.parametrize("bad", [
+    "prologue_dtype", "prologue_conv_dtype", "prologue_widths",
+    "prologue_taps", "prologue_ragged", "prologue_chunk", "prologue_state",
+    "prologue_bias", "prologue_devices", "prologue_dtensor",
+    "prologue_dt_dtype", "prologue_dt_rows", "epilogue_dtype",
+    "epilogue_x_dtype", "epilogue_y_intra", "epilogue_cs", "epilogue_cumA",
+    "epilogue_norm", "epilogue_wide", "epilogue_z_dtype"])
+def test_fused_kernels_refuse_what_they_do_not_take(bad):
+    pro, epi = _fused_inputs()
+    if bad == "prologue_dtype":             # no bf16, fp16 or float32
+        pro[0], pro[1] = pro[0].double(), pro[1].double()
+    elif bad == "prologue_conv_dtype":      # integer taps
+        pro[2] = pro[2].long()
+    elif bad == "prologue_widths":          # conv_w no [K, di + 2 n]
+        pro[2] = pro[2][:, :-1]
+    elif bad == "prologue_taps":            # K past 4
+        pro[2] = torch.randn(5, pro[2].shape[1]).bfloat16()
+    elif bad == "prologue_ragged":          # the chunk does not divide l
+        pro[0], pro[1] = pro[0][:, :24], pro[1][:, :24]
+    elif bad == "prologue_chunk":           # q past K5's 128
+        pro, _ = _fused_inputs(b=1, l=256, chunk=256)
+    elif bad == "prologue_state":           # n past K5's 128
+        pro, _ = _fused_inputs(b=1, l=16, h=1, p=8, n=130)
+    elif bad == "prologue_bias":
+        pro[3] = pro[3][:-1]
+    elif bad == "prologue_devices":
+        pro[4] = pro[4].to("meta")
+    elif bad == "prologue_dt_dtype":        # dt of another dtype than xBC
+        pro[1] = pro[1].float()
+    elif bad == "prologue_dt_rows":         # dt of other rows than xBC
+        pro[1] = pro[1][:1]
+    elif bad == "prologue_dtensor":
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        from repro_torch.launch.mesh import make_mesh, one_rank_world
+        with one_rank_world("gloo"):
+            mesh = make_mesh((1,), ("data",), "cpu")
+            pro[0] = distribute_tensor(pro[0], mesh, (Replicate(),))
+            with pytest.raises(TypeError, match="DTensor"):
+                fused.prologue(*pro)
+        return
+    elif bad == "epilogue_dtype":
+        epi[2] = epi[2].double()
+    elif bad == "epilogue_x_dtype":         # x of another dtype than z
+        epi[3] = epi[3].float()
+    elif bad == "epilogue_z_dtype":         # no bf16, fp16 or float32
+        epi[3], epi[4] = epi[3].double(), epi[4].double()
+    elif bad == "epilogue_y_intra":
+        epi[0] = epi[0][:, :-1]
+    elif bad == "epilogue_cs":
+        epi[1] = epi[1].transpose(3, 4)
+    elif bad == "epilogue_cumA":
+        epi[2] = epi[2][..., 0]
+    elif bad == "epilogue_norm":
+        epi[6] = epi[6][:-1]
+    else:                                   # di past MAX_DI
+        h = fused.MAX_DI // 64 + 1
+        epi = [torch.zeros(h, 1, 64), torch.zeros(1, 1, 1, h, 64),
+               torch.zeros(1, h, 1, 1), torch.zeros(1, 1, 64 * h).bfloat16(),
+               torch.zeros(1, 1, 64 * h).bfloat16(), torch.zeros(h),
+               torch.zeros(64 * h)]
+    with pytest.raises((ValueError, TypeError)):
+        if bad.startswith("prologue"):
+            fused.prologue(*pro)
+        else:
+            fused.epilogue(*epi, 1e-5)
+
+
+def test_fused_wrappers_take_their_plain_versions_on_cpu_tensors():
+    # CPU tensors: the plain version, no launch counted; meta tensors the
+    # plain version's shapes
+    pro, epi = _fused_inputs()
+    before = dict(fused.LAUNCHES)
+    for got, want in zip(fused.prologue(*pro), fused.prologue_plain(*pro)):
+        assert torch.equal(got, want)
+    assert torch.equal(fused.epilogue(*epi, 1e-5),
+                       fused.epilogue_plain(*epi, 1e-5))
+    meta = [t.to("meta") if isinstance(t, torch.Tensor) else t for t in pro]
+    assert [t.shape for t in fused.prologue(*meta)] == \
+        [t.shape for t in fused.prologue_plain(*pro)]
+    assert fused.LAUNCHES == before
+
+
 # -- the CUDA kernel -----------------------------------------------------------
 @pytest.fixture
 def cuda():
@@ -311,3 +683,186 @@ def test_cuda_ssd_matches_plain_version(cuda):
         n_calls += 1
     assert ssd.LAUNCHES["ssd_intra_chunk"] == before + n_calls
     assert ssd.LAUNCHES["ssd_intra_chunk_tc"] == before_tc + n_calls
+
+
+# The fused mixer kernels against their plain versions run in float32 on the
+# same inputs (bf16 inputs widened exactly): the kernels' arithmetic, in
+# another order, and one bf16 rounding at each bf16 output (2^-9 of the
+# value), held to 2^-8 of it plus float32 round-off; float32 outputs that
+# come from a rounded conv output (dtx, B, C) the same; cumA, float32 from
+# bf16 inputs throughout, to 1e-5.
+BF16_OUT_REL = 2.0 ** -8
+# (label, heads, head dim, state): hymba-1.5b's and granite-4.0-h-small's
+MIXER_WIDTHS = (("hymba", 50, 64, 16), ("granite", 128, 64, 128))
+# (rows, positions): one chunk, two chunks, a batch of rows whose conv must
+# not reach across a row's start
+MIXER_SPANS = ((1, 128), (1, 256), (3, 256))
+
+
+def _near(got, want, what, rel=BF16_OUT_REL):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    tol = rel * want.abs() + 1e-5 * (1 + want.abs().max())
+    assert bool(torch.isfinite(got).all()), what
+    assert bool((err <= tol).all()), \
+        f"{what} off by up to {float(err.max())}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("span", MIXER_SPANS)
+@pytest.mark.parametrize("width", MIXER_WIDTHS, ids=[w[0] for w in
+                                                     MIXER_WIDTHS])
+def test_cuda_prologue_matches_plain_version(cuda, width, span):
+    _, h, hd, n = width
+    b, l = span
+    di, K = h * hd, 4
+    gen = torch.Generator(device=cuda).manual_seed(l + h)
+    zx = torch.randn(b, l, 2 * di + 2 * n + h, generator=gen,
+                     device=cuda).bfloat16()
+    if b > 1:   # a row's last positions far from the next row's first
+        zx[:-1, -(K - 1):] = 100.0
+    w = (0.5 * torch.randn(K, di + 2 * n, generator=gen, device=cuda)) \
+        .bfloat16()
+    cb = (0.1 * torch.randn(di + 2 * n, generator=gen, device=cuda)) \
+        .bfloat16()
+    dt_bias = torch.randn(h, generator=gen, device=cuda)
+    A_log = torch.log(torch.linspace(1.0, 16.0, h, device=cuda))
+    before = fused.LAUNCHES["ssm_prologue"]
+    xbc, dt = zx[..., di:2 * di + 2 * n], zx[..., 2 * di + 2 * n:]
+    got = fused.prologue(xbc, dt, w, cb, dt_bias, A_log, n, 128)
+    want = fused.prologue_plain(xbc.float(), dt.float(), w.float(),
+                                cb.float(), dt_bias, A_log, n, 128)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["ssm_prologue"] == before + 1
+    assert got[4].dtype == torch.bfloat16
+    for g, wt, what in zip(got, want, ("dtx", "Bm", "Cm", "cumA", "x")):
+        assert g.shape == wt.shape and g.is_contiguous(), what
+        if what == "cumA":
+            torch.testing.assert_close(g, wt, rtol=1e-5, atol=1e-5)
+        else:
+            _near(g, wt, what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("span", MIXER_SPANS)
+@pytest.mark.parametrize("width", MIXER_WIDTHS, ids=[w[0] for w in
+                                                     MIXER_WIDTHS])
+def test_cuda_epilogue_matches_plain_version(cuda, width, span):
+    _, h, hd, _ = width
+    b, l = span
+    di, q = h * hd, 128
+    nc = l // q
+    gen = torch.Generator(device=cuda).manual_seed(l + h + 1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+    zx = rnd(b, l, 2 * di + 64).bfloat16()
+    a = -0.1 * torch.rand(b * nc, h, q, generator=gen, device=cuda)
+    args = [rnd(b * nc * h, q, hd),
+            rnd(b, nc, h, q, hd).transpose(2, 3),   # C S_in, strided
+            a.cumsum(2)[..., None], rnd(b, l, di).bfloat16(), zx[..., :di],
+            rnd(h), 1 + 0.1 * rnd(di)]
+    before = fused.LAUNCHES["ssm_epilogue"]
+    got = fused.epilogue(*args, 1e-5)
+    wide = [t.float() if t.dtype == torch.bfloat16 else t for t in args]
+    want = fused.epilogue_plain(*wide, 1e-5)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["ssm_epilogue"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, l, di)
+    _near(got, want, "out")
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_take_float32_activations(cuda):
+    # the kernels on float32 activations (float32 weights, as the float32
+    # models train) against their plain versions: float32 round-off
+    dtype = torch.float32
+    h, hd, n, b, l, K = 8, 64, 16, 2, 256, 4
+    di = h * hd
+    gen = torch.Generator(device=cuda).manual_seed(7)
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=cuda)
+    zx = rnd(b, l, 2 * di + 2 * n + h).to(dtype)
+    xbc, dt = zx[..., di:2 * di + 2 * n], zx[..., 2 * di + 2 * n:]
+    w, cb = rnd(K, di + 2 * n, scale=0.5), rnd(di + 2 * n, scale=0.1)
+    dt_bias, A_log = rnd(h), torch.log(torch.linspace(1.0, 16.0, h,
+                                                      device=cuda))
+    got = fused.prologue(xbc, dt, w, cb, dt_bias, A_log, n, 128)
+    want = fused.prologue_plain(xbc.float(), dt.float(), w, cb, dt_bias,
+                                A_log, n, 128)
+    rel = 1e-5
+    assert got[4].dtype == dtype
+    for g, wt, what in zip(got, want, ("dtx", "Bm", "Cm", "cumA", "x")):
+        _near(g, wt, what, rel)
+    y_intra, CS = rnd(b * 2 * h, 128, hd), rnd(b, 2, 128, h, hd)
+    args = (y_intra, CS, got[3], got[4], zx[..., :di], rnd(h),
+            1 + rnd(di, scale=0.1))
+    out = fused.epilogue(*args, 1e-5)
+    assert out.dtype == dtype
+    _near(out, fused.epilogue_plain(*(t.float() for t in args), 1e-5), "out",
+          rel)
+
+
+@pytest.mark.gpu
+def test_cuda_epilogue_split_norm_equals_one_launch(cuda):
+    # the two launches a tensor-parallel layout takes: the sum of squares
+    # written (mode 1) and read back (mode 2) give the one launch's bits;
+    # a total of twice the squares over twice the channels, the same
+    h, hd, b, l, q = 8, 64, 2, 256, 128
+    di = h * hd
+    gen = torch.Generator(device=cuda).manual_seed(8)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+    a = -0.1 * torch.rand(b * l // q, h, q, generator=gen, device=cuda)
+    args = (rnd(b * l // q * h, q, hd), rnd(b, l // q, q, h, hd),
+            a.cumsum(2)[..., None], rnd(b, l, di).bfloat16(), fused._rows(
+                rnd(b, l, di).bfloat16()), rnd(h), 1 + 0.1 * rnd(di))
+    one, two = (torch.empty(b, l, di, dtype=torch.bfloat16, device=cuda)
+                for _ in range(2))
+    ss = torch.empty(b * l, device=cuda)
+    before = fused.LAUNCHES["ssm_epilogue"]
+    fused._epilogue_cuda(*args, 1e-5, one)
+    fused._epilogue_cuda(*args, 1e-5, two, ss=ss, mode=1)
+    fused._epilogue_cuda(*args, 1e-5, two, ss=ss, mode=2)
+    assert torch.equal(one, two)
+    ss *= 2
+    fused._epilogue_cuda(*args, 1e-5, two, ss=ss, mode=2, di_norm=2 * di)
+    assert torch.equal(one, two)
+    assert fused.LAUNCHES["ssm_epilogue"] == before + 4
+
+
+@pytest.mark.gpu
+def test_cuda_mixer_takes_the_fused_path_with_and_without_autograd(cuda):
+    # bf16 on the card: the two kernels with and without autograd, the same
+    # bits either way; the backward (the plain pieces run again) within a
+    # few bf16 roundings of the plain path's on the CPU
+    cfg = get_smoke_config("hymba-1.5b")
+    x, p = _mixer_inputs(cfg, 11, dtype=torch.bfloat16)
+    xc, pc = x.to(cuda), {k: v.to(cuda) for k, v in p.items()}
+    before = dict(fused.LAUNCHES)
+    with obs.recording():
+        obs.reset()
+        with torch.no_grad():
+            got, (gc, gs) = ssm.ssm_mixer(xc, pc, cfg, return_state=True)
+        leaves = {k: v.clone().requires_grad_(True) for k, v in pc.items()}
+        xa = xc.clone().requires_grad_(True)
+        out = ssm.ssm_mixer(xa, leaves, cfg)
+        out.float().square().sum().backward()
+        counts = dict(obs.snapshot().counters)
+        obs.reset()
+    assert counts["ssm.calls"] == counts["ssm.fused"] == 2
+    assert fused.LAUNCHES == {k: v + 2 for k, v in before.items()}
+    assert torch.equal(out.detach(), got)
+    want, (wc, ws) = ssm.ssm_mixer(x, p, cfg, return_state=True)
+    assert torch.equal(gc.cpu(), wc)
+    for g, w in ((got, want), (gs, ws)):
+        w = w.detach().float()
+        assert float((g.cpu().float() - w).norm() / w.norm()) < 0.03
+    ref = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    xr = x.clone().requires_grad_(True)
+    ssm.ssm_mixer(xr, ref, cfg).float().square().sum().backward()
+    for k, g in [("x", xa.grad)] + [(k, v.grad) for k, v in leaves.items()]:
+        w = (xr.grad if k == "x" else ref[k].grad).float()
+        assert float((g.cpu().float() - w).norm() / w.norm()) < 0.05, k
